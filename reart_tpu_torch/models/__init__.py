@@ -1,0 +1,16 @@
+"""Models. Slice 1 ports the relaxation (base) stage."""
+
+from reart_tpu_torch.models.base_model import (
+    BaseModel,
+    base_forward,
+    compute_pc_transform,
+    gumbel_noise,
+    gumbel_softmax,
+    transform_points_blend,
+)
+from reart_tpu_torch.models.blocks import MLP
+
+__all__ = [
+    "BaseModel", "MLP", "base_forward", "compute_pc_transform",
+    "gumbel_noise", "gumbel_softmax", "transform_points_blend",
+]

@@ -1,0 +1,94 @@
+"""Linear assignment: batched epsilon-scaling auction, dense part
+(reart_tpu/ops/assignment.py).
+
+Sweep counts are bounded (`max_sweeps`); rows still unassigned at the bound
+are completed greedily outside the kernel (they may duplicate a column).
+Prices can be warm-started across solves (`price` in and out). The banded
+points-level solve for giant problems is ported in slice 4.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from reart_tpu_torch.ops.cuda_auction import auction_solve_resident
+
+
+def _auction_phase(benefit: torch.Tensor, price: torch.Tensor, eps: float,
+                   max_sweeps: int):
+    """One epsilon phase of the Jacobi (all-rows-bid) auction with
+    unseating, as masked reductions over (B, N, M) (no scatter). The plain
+    version of the resident kernel. benefit (B, N, M), price (B, M) ->
+    (row_to_col (B, N) int64, price (B, M))."""
+    b, n, m = benefit.shape
+    dev = benefit.device
+    col_ids = torch.arange(m, device=dev)[None, None, :]
+    row_ids = torch.arange(n, device=dev)[None, :]
+    neg_inf = torch.tensor(float("-inf"), dtype=benefit.dtype, device=dev)
+    row_to_col = torch.full((b, n), -1, dtype=torch.int64, device=dev)
+    sweep = 0
+    while sweep < max_sweeps and bool((row_to_col < 0).any()):
+        unassigned = row_to_col < 0
+        values = benefit - price[:, None, :]
+        best_j = torch.argmax(values, dim=-1)                 # first max
+        best_v = torch.gather(values, -1, best_j[..., None])[..., 0]
+        is_best = best_j[..., None] == col_ids
+        second_v = torch.where(is_best, neg_inf, values).amax(dim=-1)
+        bid = best_v - second_v + eps
+        bid = torch.where(unassigned, bid, neg_inf)  # only unassigned bid
+
+        bid_matrix = torch.where(is_best, bid[..., None], neg_inf)
+        col_bid = bid_matrix.amax(dim=1)                      # (B, M)
+        got_bid = col_bid > neg_inf
+        is_win = (bid_matrix == col_bid[:, None, :]) & (bid_matrix > neg_inf)
+        col_winner = torch.argmax(is_win.to(torch.int32), dim=1)  # lowest row
+
+        price = torch.where(got_bid, price + col_bid, price)
+
+        # unseat rows whose held column was re-bid by a different winner
+        prev_col = row_to_col.clamp_min(0)
+        held = row_to_col >= 0
+        col_rebid = torch.gather(got_bid, 1, prev_col) & held
+        winner_of_prev = torch.gather(col_winner, 1, prev_col)
+        row_to_col = torch.where(col_rebid & (winner_of_prev != row_ids),
+                                 -1, row_to_col)
+        # seat the winning bidders
+        won = torch.gather(col_winner, 1, best_j) == row_ids
+        seat = unassigned & won & torch.gather(got_bid, 1, best_j)
+        row_to_col = torch.where(seat, best_j, row_to_col)
+        sweep += 1
+    return row_to_col, price
+
+
+def auction_lap(cost: torch.Tensor, eps_min: float = 1e-4,
+                num_scales: int = 5, scale_factor: float = 8.0,
+                max_sweeps: int = 500, price: torch.Tensor | None = None,
+                return_price: bool = False):
+    """Minimise the summed cost over a matching. cost (B, N, M), N <= M.
+
+    Returns row_to_col (B, N) int64 (and the final prices if
+    `return_price`). Epsilon phases run from eps_min * scale_factor **
+    (num_scales - 1) down to eps_min; pass `price` to warm-start."""
+    if cost.dim() == 2:
+        out = auction_lap(cost[None], eps_min, num_scales, scale_factor,
+                          max_sweeps, None if price is None else price[None],
+                          return_price)
+        return (out[0][0], out[1][0]) if return_price else out[0]
+    benefit = (-cost.to(torch.float32)).contiguous()
+    b, _, m = benefit.shape
+    if price is None:
+        price = torch.zeros((b, m), dtype=torch.float32, device=cost.device)
+    eps_list = tuple(float(eps_min * scale_factor ** k)
+                     for k in range(num_scales - 1, -1, -1))
+    row_to_col, price = auction_solve_resident(
+        benefit, price.to(torch.float32).contiguous(), eps_list, max_sweeps)
+    # greedy completion of any rows left by the sweep bound
+    fallback = torch.argmax(benefit - price[:, None, :], dim=-1)
+    row_to_col = torch.where(row_to_col < 0, fallback, row_to_col)
+    return (row_to_col, price) if return_price else row_to_col
+
+
+def assignment_cost(cost: torch.Tensor, row_to_col: torch.Tensor):
+    """Total matched cost per batch element."""
+    picked = torch.gather(cost, -1, row_to_col[..., None].long())
+    return picked[..., 0].sum(dim=-1)
