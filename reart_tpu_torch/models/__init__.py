@@ -1,4 +1,4 @@
-"""Models. Slice 1 ports the relaxation (base) stage."""
+"""Models: the relaxation (base) stage. The kinematic stage follows."""
 
 from reart_tpu_torch.models.base_model import (
     BaseModel,
@@ -6,11 +6,13 @@ from reart_tpu_torch.models.base_model import (
     compute_pc_transform,
     gumbel_noise,
     gumbel_softmax,
+    refine_seg_motion,
     transform_points_blend,
 )
 from reart_tpu_torch.models.blocks import MLP
 
 __all__ = [
     "BaseModel", "MLP", "base_forward", "compute_pc_transform",
-    "gumbel_noise", "gumbel_softmax", "transform_points_blend",
+    "gumbel_noise", "gumbel_softmax", "refine_seg_motion",
+    "transform_points_blend",
 ]

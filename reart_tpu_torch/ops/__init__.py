@@ -7,7 +7,11 @@ Their CUDA sources live in reart_tpu_torch/csrc and are built on first use.
 
 from reart_tpu_torch.ops.assignment import assignment_cost, auction_lap
 from reart_tpu_torch.ops.distance import (
+    chamfer,
     chamfer_loss,
+    knn,
+    knn_transfer_features,
+    knn_transfer_labels,
     nearest_neighbor,
     pairwise_sqdist,
 )
@@ -23,7 +27,8 @@ from reart_tpu_torch.ops.sampling import (
 
 __all__ = [
     "assignment_cost", "auction_lap", "blend_anchor_motion",
-    "blend_anchor_motion_batched", "chamfer_loss", "farthest_point_sample",
-    "index_points", "masked_farthest_point_sample", "nearest_neighbor",
+    "blend_anchor_motion_batched", "chamfer", "chamfer_loss",
+    "farthest_point_sample", "index_points", "knn", "knn_transfer_features",
+    "knn_transfer_labels", "masked_farthest_point_sample", "nearest_neighbor",
     "pairwise_sqdist",
 ]

@@ -1,10 +1,12 @@
 """Builds and loads the port's CUDA kernels.
 
-Every `csrc/*.cu` file is compiled by `nvcc` for sm_90a (Hopper) into one
-shared library with a plain C interface, which is loaded with ctypes. The
-library is built on first use into `reart_tpu_torch/_build/`, named by a
-hash of the sources and flags, so a fresh checkout builds everything on its
-first kernel launch and an edited source gets a fresh library.
+Every `csrc/*.cu` file is compiled by `nvcc` for sm_90a (Hopper), one
+compiler process per source, all started together, and the objects are
+linked into one shared library with a plain C interface, which is loaded
+with ctypes. The library is built on first use into
+`reart_tpu_torch/_build/`, named by a hash of the sources and flags, so a
+fresh checkout builds everything on its first kernel launch and an edited
+source gets a fresh library.
 
 `-fmad=false` keeps nvcc from contracting a*b + c into one FMA: each kernel
 and its plain PyTorch version then round every sum the same way, which keeps
@@ -28,7 +30,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -46,6 +48,16 @@ SIGNATURES = {
     # benefit, price_in, B, N, M, eps (host float*), n_eps, max_sweeps,
     # row_to_col, price_out, stream
     "reart_auction_resident": (_P, _P, _I, _I, _I, _P, _I, _I, _P, _P, _P),
+    # query, ref, B, N, M, ref_div, k, out_d, out_i, stream
+    "reart_nn_topk": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
+    # query, ref, B, N, M, out_d, out_i, out_c, stream
+    "reart_nn1_coords": (_P, _P, _I, _I, _I, _P, _P, _P, _P),
+    # src, tgt, B, N, M, fd, fi, bd, bi, stream
+    "reart_nn_bidir": (_P, _P, _I, _I, _I, _P, _P, _P, _P, _P),
+    # benefit, price, B, N, M, best_v, second_v, best_j, stream
+    "reart_row_top2": (_P, _P, _I, _I, _I, _P, _P, _P, _P),
+    # bid, best_j, B, N, M, col_bid, col_winner, stream
+    "reart_col_winner_max": (_P, _P, _I, _I, _I, _P, _P, _P),
 }
 
 
@@ -89,15 +101,30 @@ def build() -> tuple[str, float, str]:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
     cu = [s for s in sources() if s.endswith(".cu")]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
+    objs = [f"{tmp}.{os.path.basename(s)}.o" for s in cu]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, s],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for s, o in zip(cu, objs)]
+    outs = [p.communicate()[0] for p in procs]
+    log = "".join(outs)
+    try:
+        failed = [s for s, p in zip(cu, procs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+        link = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        log += link.stdout + link.stderr
+        if link.returncode != 0:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{log}")
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
     with open(log_path, "w") as f:
         f.write(log)
     os.replace(tmp, path)  # atomic: no process loads half a file

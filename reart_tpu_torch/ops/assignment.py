@@ -4,44 +4,49 @@
 Sweep counts are bounded (`max_sweeps`); rows still unassigned at the bound
 are completed greedily outside the kernel (they may duplicate a column).
 Prices can be warm-started across solves (`price` in and out). The banded
-points-level solve for giant problems is ported in slice 4.
+points-level solve for giant problems is not ported yet.
 """
 
 from __future__ import annotations
 
 import torch
 
-from reart_tpu_torch.ops.cuda_auction import auction_solve_resident
+from reart_tpu_torch.ops.cuda_auction import (
+    auction_solve_resident,
+    col_winner_max,
+    col_winner_max_plain,
+    resident_available,
+    row_top2,
+    row_top2_plain,
+)
 
 
 def _auction_phase(benefit: torch.Tensor, price: torch.Tensor, eps: float,
-                   max_sweeps: int):
+                   max_sweeps: int, plain: bool = False):
     """One epsilon phase of the Jacobi (all-rows-bid) auction with
-    unseating, as masked reductions over (B, N, M) (no scatter). The plain
-    version of the resident kernel. benefit (B, N, M), price (B, M) ->
-    (row_to_col (B, N) int64, price (B, M))."""
+    unseating. benefit (B, N, M), price (B, M) -> (row_to_col (B, N) int64,
+    price (B, M)).
+
+    The sweep's two matrix-shaped passes go through `row_top2` and
+    `col_winner_max` (kernels on a CUDA tensor, which read the benefit matrix
+    once per sweep); `plain` takes their plain versions on any device, which
+    makes this loop the plain version of the resident kernel. The loop ends
+    when every row is seated, read back once per sweep."""
+    top2, winner = ((row_top2_plain, col_winner_max_plain) if plain
+                    else (row_top2, col_winner_max))
     b, n, m = benefit.shape
     dev = benefit.device
-    col_ids = torch.arange(m, device=dev)[None, None, :]
     row_ids = torch.arange(n, device=dev)[None, :]
     neg_inf = torch.tensor(float("-inf"), dtype=benefit.dtype, device=dev)
     row_to_col = torch.full((b, n), -1, dtype=torch.int64, device=dev)
     sweep = 0
     while sweep < max_sweeps and bool((row_to_col < 0).any()):
         unassigned = row_to_col < 0
-        values = benefit - price[:, None, :]
-        best_j = torch.argmax(values, dim=-1)                 # first max
-        best_v = torch.gather(values, -1, best_j[..., None])[..., 0]
-        is_best = best_j[..., None] == col_ids
-        second_v = torch.where(is_best, neg_inf, values).amax(dim=-1)
+        best_v, second_v, best_j = top2(benefit, price)
         bid = best_v - second_v + eps
         bid = torch.where(unassigned, bid, neg_inf)  # only unassigned bid
-
-        bid_matrix = torch.where(is_best, bid[..., None], neg_inf)
-        col_bid = bid_matrix.amax(dim=1)                      # (B, M)
+        col_bid, col_winner = winner(bid, best_j, m)
         got_bid = col_bid > neg_inf
-        is_win = (bid_matrix == col_bid[:, None, :]) & (bid_matrix > neg_inf)
-        col_winner = torch.argmax(is_win.to(torch.int32), dim=1)  # lowest row
 
         price = torch.where(got_bid, price + col_bid, price)
 
@@ -63,25 +68,36 @@ def _auction_phase(benefit: torch.Tensor, price: torch.Tensor, eps: float,
 def auction_lap(cost: torch.Tensor, eps_min: float = 1e-4,
                 num_scales: int = 5, scale_factor: float = 8.0,
                 max_sweeps: int = 500, price: torch.Tensor | None = None,
-                return_price: bool = False):
+                return_price: bool = False, use_resident: bool | None = None):
     """Minimise the summed cost over a matching. cost (B, N, M), N <= M.
 
     Returns row_to_col (B, N) int64 (and the final prices if
     `return_price`). Epsilon phases run from eps_min * scale_factor **
-    (num_scales - 1) down to eps_min; pass `price` to warm-start."""
+    (num_scales - 1) down to eps_min; pass `price` to warm-start. A problem
+    that fits the resident kernel (N*M <= 1024^2) is solved in one launch; a
+    larger one sweep by sweep through the two sweep kernels
+    (`use_resident=False` sends any size that way)."""
     if cost.dim() == 2:
         out = auction_lap(cost[None], eps_min, num_scales, scale_factor,
                           max_sweeps, None if price is None else price[None],
-                          return_price)
+                          return_price, use_resident)
         return (out[0][0], out[1][0]) if return_price else out[0]
     benefit = (-cost.to(torch.float32)).contiguous()
-    b, _, m = benefit.shape
+    b, n, m = benefit.shape
     if price is None:
         price = torch.zeros((b, m), dtype=torch.float32, device=cost.device)
+    price = price.to(torch.float32).contiguous()
     eps_list = tuple(float(eps_min * scale_factor ** k)
                      for k in range(num_scales - 1, -1, -1))
-    row_to_col, price = auction_solve_resident(
-        benefit, price.to(torch.float32).contiguous(), eps_list, max_sweeps)
+    if use_resident is None:
+        use_resident = resident_available(n, m)
+    if use_resident:
+        row_to_col, price = auction_solve_resident(benefit, price, eps_list,
+                                                   max_sweeps)
+    else:
+        for eps in eps_list:
+            row_to_col, price = _auction_phase(benefit, price, eps,
+                                               max_sweeps)
     # greedy completion of any rows left by the sweep bound
     fallback = torch.argmax(benefit - price[:, None, :], dim=-1)
     row_to_col = torch.where(row_to_col < 0, fallback, row_to_col)

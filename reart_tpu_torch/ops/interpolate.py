@@ -9,25 +9,18 @@ from __future__ import annotations
 
 import torch
 
-from reart_tpu_torch.ops import _build
-from reart_tpu_torch.ops.cuda_nn import blend3, ksmallest
-from reart_tpu_torch.ops.distance import pairwise_sqdist
+from reart_tpu_torch.ops.cuda_nn import blend3
+from reart_tpu_torch.ops.distance import knn
 
 
 def blend_anchor_motion(query_loc: torch.Tensor, reference_loc: torch.Tensor,
                         reference_flow: torch.Tensor, k: int = 3,
                         return_mask: bool = False):
-    """Flow on query points (m, 3) from the k nearest anchors (n, 3).
-
-    The TPU path of this op is the k-NN kernel (pallas_nn.nn_topk), which is
-    ported in slice 2; until then a CUDA tensor raises. The batched k=3 form
-    below runs its own kernel."""
-    if not _build.is_cpu("blend_anchor_motion", query_loc):
-        raise NotImplementedError(
-            "blend_anchor_motion on CUDA needs the k-NN kernel (nn_topk), "
-            "ported in slice 2; use blend_anchor_motion_batched for k=3")
-    sq, idx = ksmallest(pairwise_sqdist(query_loc, reference_loc), k)
-    dists = torch.clamp_min(torch.sqrt(torch.clamp_min(sq, 0.0)), 1e-10)
+    """Flow on query points (m, 3) from the k nearest anchors (n, 3): the
+    k-NN kernel, then gathers. The batched k=3 form below runs its own fused
+    kernel."""
+    dists, idx = knn(query_loc, reference_loc, k)   # euclidean, ascending
+    dists = torch.clamp_min(dists, 1e-10)
     weight = 1.0 / dists
     weight = weight / torch.sum(weight, dim=-1, keepdim=True)
     flows = reference_flow[idx]                                # (m, k, 3)

@@ -22,6 +22,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from reart_tpu_torch import resolve_device
 from reart_tpu_torch.losses import assignment_loss, flow_loss, recon_loss
 from reart_tpu_torch.models.base_model import (
     BaseModel,
@@ -224,12 +225,12 @@ def fit_base(params: BaseModel, cfg: FitConfig, cano_pc, pc_list,
              device=None):
     """Relaxation-stage fit (reference `--model=base`).
 
-    params: the BaseModel, trained in place (moved to `device` when given).
+    params: the BaseModel, trained in place after a move to `device` (the
+    card when None; `device="cpu"` runs the plain versions on the CPU).
     cano_pc (N, 3) and pc_list (T-1, N, 3): arrays or tensors. noise(it) ->
     (N, P) Gumbel draw; by default drawn from a torch.Generator seeded with
     0 on the device. Returns (params, history)."""
-    device = torch.device(device) if device is not None else \
-        next(params.parameters()).device
+    device = resolve_device(device)
     params = params.to(device)
     cano = torch.as_tensor(cano_pc, dtype=torch.float32, device=device)
     pcs = torch.as_tensor(pc_list, dtype=torch.float32, device=device)

@@ -2,7 +2,10 @@
 the plain version of csrc/auction.cu) against the JAX package's auction_lap,
 through its jnp phase loop and through the resident Pallas kernel in
 interpret mode (the cases of tests/test_assignment.py). row_to_col must be
-equal; prices within rtol 1e-5, atol 1e-6."""
+equal; prices within rtol 1e-5, atol 1e-6. The plain versions of the two
+sweep kernels (csrc/auction_sweep.cu) against row_top2_pallas and
+col_winner_max_pallas in interpret mode: indices equal, values equal (one
+subtraction, a maximum: no rounding differs)."""
 
 import numpy as np
 import pytest
@@ -29,7 +32,7 @@ def _jax_lap(cost, resident, price=None, **kw):
     return np.asarray(r2c), np.asarray(p)
 
 
-def _port_lap(cost, price=None, **kw):
+def _port_lap(cost, price=None, **kw):  # kw may name use_resident
     r2c, p = auction_lap(torch.from_numpy(cost),
                          price=None if price is None
                          else torch.from_numpy(np.array(price)),
@@ -48,6 +51,77 @@ def test_cold_solve_matches_jax(resident):
     r, p = _port_lap(cost, **COLD)
     np.testing.assert_array_equal(r, r_ref)
     np.testing.assert_allclose(p, p_ref, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("kw", [COLD, dict(COLD, max_sweeps=3)],
+                         ids=["converged", "sweep_bound"])
+def test_sweep_path_matches_jax_and_the_resident_path(kw):
+    """auction_lap sweep by sweep (the route of problems past 1024^2)
+    against the JAX package's sweep loop and the port's resident route."""
+    cost = np.random.RandomState(8).rand(2, 64, 96).astype(np.float32)
+    r_ref, p_ref = _jax_lap(cost, False, **kw)
+    r, p = _port_lap(cost, use_resident=False, **kw)
+    np.testing.assert_array_equal(r, r_ref)
+    np.testing.assert_allclose(p, p_ref, rtol=1e-5, atol=1e-6)
+    r2, p2 = _port_lap(cost, use_resident=True, **kw)
+    np.testing.assert_array_equal(r, r2)
+    np.testing.assert_array_equal(p, p2)
+
+
+def _sweep_inputs(kind):
+    rng = np.random.RandomState(11)
+    if kind == "random":
+        benefit = -rng.rand(2, 256, 1024).astype(np.float32)
+        price = rng.rand(2, 1024).astype(np.float32)
+    else:  # small integers: best and second tie in most rows
+        benefit = -rng.randint(0, 3, (2, 256, 1024)).astype(np.float32)
+        price = rng.randint(0, 2, (2, 1024)).astype(np.float32)
+    return benefit, price
+
+
+@pytest.mark.parametrize("kind", ["random", "ties"])
+def test_row_top2_plain_matches_pallas(kind):
+    from reart_tpu.ops.pallas_auction import row_top2_pallas
+
+    benefit, price = _sweep_inputs(kind)
+    with pltpu.force_tpu_interpret_mode():
+        ref = row_top2_pallas(jnp.asarray(benefit), jnp.asarray(price))
+    got = cuda_auction.row_top2(torch.from_numpy(benefit),
+                                torch.from_numpy(price))
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+    assert got[2].dtype == torch.int64
+
+
+@pytest.mark.parametrize("kind", ["random", "ties"])
+def test_col_winner_max_plain_matches_pallas(kind):
+    from reart_tpu.ops.pallas_auction import col_winner_max_pallas
+
+    benefit, price = _sweep_inputs(kind)
+    bv, sv, bj = cuda_auction.row_top2(torch.from_numpy(benefit),
+                                       torch.from_numpy(price))
+    bid = bv - sv + 0.5
+    bid[:, ::3] = float("-inf")  # a third of the rows hold a seat
+    with pltpu.force_tpu_interpret_mode():
+        cb_ref, cw_ref = col_winner_max_pallas(
+            jnp.asarray(bid.numpy()), jnp.asarray(bj.numpy().astype(np.int32)),
+            1024)
+    cb, cw = cuda_auction.col_winner_max(bid, bj, 1024)
+    np.testing.assert_array_equal(cb.numpy(), np.asarray(cb_ref))
+    got_bid = cb.numpy() > -np.inf
+    assert got_bid.any() and not got_bid.all()
+    # the winner of a column without a bid means nothing on either side
+    np.testing.assert_array_equal(cw.numpy()[got_bid],
+                                  np.asarray(cw_ref)[got_bid])
+    assert int(cw.numpy()[~got_bid].max()) == 0
+
+
+def test_sweep_wrappers_check_inputs():
+    with pytest.raises(ValueError):
+        cuda_auction.row_top2(torch.zeros((1, 4, 8)), torch.zeros((1, 4)))
+    with pytest.raises(ValueError):
+        cuda_auction.col_winner_max(torch.zeros((1, 4)),
+                                    torch.zeros((1, 5), dtype=torch.int64), 8)
 
 
 @pytest.mark.parametrize("resident", [False, True])

@@ -50,7 +50,7 @@ def _jax_params(seed=0):
 
 def test_interop_round_trip():
     tree = _jax_params()
-    back = base_params_to_numpy(base_params_from_jax(tree))
+    back = base_params_to_numpy(base_params_from_jax(tree, device="cpu"))
     assert jax.tree.structure(back) == jax.tree.structure(tree)
     for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(tree)):
         np.testing.assert_array_equal(a, b)
@@ -64,7 +64,7 @@ def test_base_forward_matches_jax_with_same_gumbel_draw(tau):
     noise = np.array(jax.random.gumbel(key, (N, P), jnp.float32))
     pc_ref, seg_ref, trans_ref = jax_base_forward(
         jax.tree.map(jnp.asarray, tree), jnp.asarray(cano), key, tau)
-    model = base_params_from_jax(tree)
+    model = base_params_from_jax(tree, device="cpu")
     with torch.no_grad():
         pc, seg, trans = base_forward(model, torch.from_numpy(cano),
                                       torch.from_numpy(noise), tau)
@@ -149,7 +149,8 @@ def test_mlp_init_keeps_torch_default_bounds():
 
 
 def test_base_model_init_is_identity_pose():
-    model = BaseModel(P, T1, generator=torch.Generator().manual_seed(0))
+    model = BaseModel(P, T1, generator=torch.Generator().manual_seed(0),
+                      device="cpu")
     cano = torch.from_numpy(
         np.random.RandomState(6).randn(N, 3).astype(np.float32))
     noise = gumbel_noise((N, P), torch.Generator().manual_seed(1))

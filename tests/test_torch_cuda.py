@@ -133,9 +133,45 @@ def test_auction_integer_costs_tie_everywhere(cuda):
 
 def test_auction_rejects_past_dense_window(cuda):
     benefit = torch.zeros((1, 1025, 1025), device=cuda)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         cuda_auction.auction_solve_resident(
             benefit, torch.zeros((1, 1025), device=cuda), EPS, 10)
+
+
+@pytest.mark.parametrize("b,n,m", [(1, 1, 1), (3, 5, 1), (2, 300, 500),
+                                   (1, 33, 4100), (2, 128, 160)])
+def test_sweep_kernels_sizes_and_ties(cuda, b, n, m):
+    rng = np.random.RandomState(b * n + m)
+    if (n, m) == (128, 160):  # small integers: ties in most rows and columns
+        benefit = -torch.from_numpy(rng.randint(0, 3, (b, n, m)).astype(
+            np.float32))
+        price = torch.from_numpy(rng.randint(0, 2, (b, m)).astype(np.float32))
+    else:
+        benefit, price = -_randn(n, b, n, m).abs(), _randn(m, b, m).abs()
+    got = cuda_auction.row_top2(benefit.to(cuda), price.to(cuda))
+    ref = cuda_auction.row_top2_plain(benefit, price)
+    _same(got, ref, exact={0, 1, 2})
+    bid = ref[0] - ref[1] + 0.5
+    bid[:, ::3] = float("-inf")
+    got = cuda_auction.col_winner_max(bid.to(cuda), ref[2].to(cuda), m)
+    _same(got, cuda_auction.col_winner_max_plain(bid, ref[2], m),
+          exact={0, 1})
+
+
+def test_auction_lap_past_the_resident_window_runs_sweeps(cuda):
+    from reart_tpu_torch.ops.assignment import auction_lap
+
+    tgt = _randn(5, 1, 1100, 3)
+    src = tgt[:, np.random.RandomState(5).permutation(1100)] \
+        + 0.05 * _randn(6, 1, 1100, 3)
+    cost = torch.cdist(src, tgt)
+    kw = dict(eps_min=1e-4, num_scales=2, scale_factor=50.0, max_sweeps=60,
+              return_price=True)
+    before = cuda_auction.row_top2.launches
+    r2c, price = auction_lap(cost.to(cuda), **kw)
+    assert cuda_auction.row_top2.launches > before
+    r_ref, p_ref = auction_lap(cost, **kw)  # the plain loop on the CPU
+    _same((r2c, price), (r_ref, p_ref), exact={0})
 
 
 def test_chamfer_grads_on_card_match_cpu(cuda):
@@ -153,14 +189,129 @@ def test_chamfer_grads_on_card_match_cpu(cuda):
         torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-6)
 
 
-def test_unported_ops_raise_on_card(cuda):
-    from reart_tpu_torch.ops import blend_anchor_motion, nearest_neighbor
+@pytest.mark.parametrize("k", [1, 2, 3, 5, 8])
+@pytest.mark.parametrize("b,n,m", [(1, 1, 1), (2, 129, 1025), (3, 33, 5),
+                                   (1, 300, 2049)])
+def test_nn_topk_ragged_and_m_below_k(cuda, k, b, n, m):
+    q, r = _randn(b * n + k, b, n, 3), _randn(m + k, b, m, 3)
+    got = cuda_nn.nn_topk(q.to(cuda), r.to(cuda), k)
+    _same(got, cuda_nn.nn_topk_plain(q, r, k), exact={1})
+    if m < k:  # the missing slots
+        assert torch.isinf(got[0][..., m:]).all()
+        assert int(got[1][..., m:].abs().max()) == 0
 
-    x = torch.zeros((8, 3), device=cuda)
-    with pytest.raises(NotImplementedError):
-        nearest_neighbor(x, x)
-    with pytest.raises(NotImplementedError):
-        blend_anchor_motion(x, x, x)
+
+@pytest.mark.parametrize("k", [1, 3, 8])
+def test_nn_topk_duplicates_and_all_ties(cuda, k):
+    base = _randn(0, 1, 4, 3)
+    q, r = base.repeat(1, 50, 1), base.repeat(1, 300, 1)
+    got = cuda_nn.nn_topk(q.to(cuda), r.to(cuda), k)
+    _same(got, cuda_nn.nn_topk_plain(q, r, k), exact={1})
+    zero = torch.zeros((1, 70, 3))
+    d, i = cuda_nn.nn_topk(zero.to(cuda), zero.to(cuda), k)
+    assert torch.equal(i.cpu(), torch.arange(k).expand(1, 70, k))
+    assert float(d.abs().max()) == 0.0
+
+
+def test_nn_topk_broadcast_ref_is_read_in_place(cuda):
+    # query (T, P, N, 3) against ref (T, 1, M, 3), and against one (M, 3)
+    q, r = _randn(1, 3, 4, 65, 3), _randn(2, 3, 1, 130, 3)
+    full = r.expand(3, 4, 130, 3).reshape(12, 130, 3)
+    ref = cuda_nn.nn_topk_plain(q.reshape(12, 65, 3), full, 3)
+    got = cuda_nn.nn_topk(q.to(cuda), r.to(cuda), 3)
+    _same([g.reshape(12, 65, 3) for g in got], ref, exact={1})
+    got1 = cuda_nn.nn_topk(q.to(cuda), r[0, 0].to(cuda), 1)
+    ref1 = cuda_nn.nn_topk_plain(q.reshape(12, 65, 3), r[0], 1, ref_div=12)
+    _same([g.reshape(12, 65, 1) for g in got1], ref1, exact={1})
+
+
+def test_batch_past_65535(cuda):
+    b = 70000
+    q, r = _randn(3, b, 5, 3), _randn(4, b, 7, 3)
+    _same(cuda_nn.nn_topk(q.to(cuda), r.to(cuda), 3),
+          cuda_nn.nn_topk_plain(q, r, 3), exact={1})
+    _same(cuda_nn.nn1_coords(q.to(cuda), r.to(cuda)),
+          cuda_nn.nn1_coords_plain(q, r), exact={1, 2})
+    _same(cuda_nn.nn_bidir(q.to(cuda), r.to(cuda)),
+          cuda_nn.nn_bidir_plain(q, r), exact={1, 3})
+
+
+@pytest.mark.parametrize("b,n,m", [(1, 1, 1), (400, 20, 20), (2, 129, 1025),
+                                   (1, 4097, 3), (2, 33, 2049)])
+def test_nn1_coords_and_nn_bidir_ragged(cuda, b, n, m):
+    q, r = _randn(b * n, b, n, 3), _randn(m, b, m, 3)
+    _same(cuda_nn.nn1_coords(q.to(cuda), r.to(cuda)),
+          cuda_nn.nn1_coords_plain(q, r), exact={1, 2})
+    _same(cuda_nn.nn_bidir(q.to(cuda), r.to(cuda)),
+          cuda_nn.nn_bidir_plain(q, r), exact={1, 3})
+
+
+def test_nn1_coords_and_nn_bidir_ties(cuda):
+    base = _randn(0, 1, 4, 3)
+    q, r = base.repeat(1, 50, 1), base.repeat(1, 300, 1)
+    _same(cuda_nn.nn1_coords(q.to(cuda), r.to(cuda)),
+          cuda_nn.nn1_coords_plain(q, r), exact={1, 2})
+    _same(cuda_nn.nn_bidir(q.to(cuda), r.to(cuda)),
+          cuda_nn.nn_bidir_plain(q, r), exact={1, 3})
+    zero = torch.zeros((2, 70, 3), device=cuda)
+    assert int(cuda_nn.nn1_coords(zero, zero)[1].max()) == 0
+    fd, fi, bd, bi = cuda_nn.nn_bidir(zero, zero)
+    assert int(fi.max()) == 0 and int(bi.max()) == 0
+
+
+def test_nn_topk_rejects_k_past_cap(cuda):
+    x = torch.zeros((1, 8, 3), device=cuda)
+    with pytest.raises(ValueError):
+        cuda_nn.nn_topk(x, x, cuda_nn.MAX_K + 1)
+
+
+@pytest.mark.parametrize("mode", ["forward", "reverse", "bidirectional"])
+def test_chamfer_modes_grads_on_card_match_cpu(cuda, mode):
+    from reart_tpu_torch.ops.distance import chamfer
+
+    n, m = (300, 300) if mode == "bidirectional" else (300, 500)
+    src, tgt = _randn(10, 2, n, 3), _randn(11, 2, m, 3)
+    outs = []
+    for dev in ("cpu", cuda):
+        s = src.to(dev).detach().requires_grad_(True)
+        t = tgt.to(dev).detach().requires_grad_(True)
+        d, *idx = chamfer(s, t, bidirectional=mode == "bidirectional",
+                          reverse=mode == "reverse", return_index=True)
+        d.sum().backward()
+        outs.append((d.detach().cpu(), s.grad.cpu(), t.grad.cpu(),
+                     [i.cpu() for i in idx]))
+    for i_card, i_cpu in zip(outs[1][3], outs[0][3]):
+        assert torch.equal(i_card, i_cpu)
+    # the scatter-add order differs (atomics on the card)
+    for g, r in zip(outs[1][:3], outs[0][:3]):
+        torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-6)
+
+
+def test_neighbour_ops_run_on_card(cuda):
+    from reart_tpu_torch.ops import (
+        blend_anchor_motion,
+        knn,
+        knn_transfer_labels,
+        nearest_neighbor,
+    )
+
+    q, r = _randn(20, 150, 3), _randn(21, 400, 3)
+    f = 0.1 * _randn(22, 400, 3)
+    d, i = nearest_neighbor(q.to(cuda), r.to(cuda))
+    d_ref, i_ref = nearest_neighbor(q, r)
+    assert torch.equal(i.cpu(), i_ref)
+    torch.testing.assert_close(d.cpu(), d_ref, **TOL)
+    dk, ik = knn(q.to(cuda), r.to(cuda), 3)
+    assert torch.equal(ik.cpu(), knn(q, r, 3)[1])
+    out, mask = blend_anchor_motion(q.to(cuda), r.to(cuda), f.to(cuda),
+                                    return_mask=True)
+    out_ref, mask_ref = blend_anchor_motion(q, r, f, return_mask=True)
+    torch.testing.assert_close(out.cpu(), out_ref, rtol=1e-5, atol=1e-6)
+    assert torch.equal(mask.cpu(), mask_ref)
+    labels = torch.arange(400) % 7
+    assert torch.equal(
+        knn_transfer_labels(q.to(cuda), r.to(cuda), labels.to(cuda)).cpu(),
+        knn_transfer_labels(q, r, labels))
 
 
 def test_fit_base_default_noise_on_card(cuda):
@@ -169,9 +320,74 @@ def test_fit_base_default_noise_on_card(cuda):
 
     cano = _randn(12, 256, 3)
     pcs = torch.stack([cano + 0.02 * i for i in range(1, 4)])
-    model = BaseModel(3, 3, generator=torch.Generator().manual_seed(0))
+    model = BaseModel(3, 3, generator=torch.Generator().manual_seed(0),
+                      device="cpu")  # fit_base moves it to the card
     cfg = FitConfig(n_iter=8, use_assign_loss=True, assign_iter=4,
                     assign_gap=2, downsample=2)
     _, hist = fit_base(model, cfg, cano, pcs, device=cuda)
     assert all(torch.isfinite(v).all() for v in hist.values())
     assert model.proposal_t.device.type == "cuda"
+
+
+@pytest.mark.parametrize("seed,n_parts", [(0, 6), (1, 4)])
+def test_seg_refine_and_graph_stage_on_card_match_cpu(cuda, seed, n_parts):
+    """The stages between the fit and the metrics, on the card against the
+    CPU from the same labels and poses: labels and edges exact."""
+    from reart_tpu_torch import graph
+    from reart_tpu_torch.data.synth import make_robot_sample
+    from reart_tpu_torch.models import refine_seg_motion
+
+    sample = make_robot_sample(n_frames=5, n_points=2048, n_parts=n_parts,
+                               seed=seed)
+    rng = np.random.RandomState(seed)
+    gt = sample["gt_cano_part"]
+    cols = rng.permutation(12)[:n_parts + 1]
+    seg = cols[gt]
+    seg[(gt == 0) & (sample["cano_pc"][:, 0] < 0)] = cols[n_parts]
+    wrong = rng.choice(len(seg), 150, replace=False)
+    seg[wrong] = cols[rng.randint(0, n_parts, 150)]
+    trans = np.tile(np.eye(4, dtype=np.float32), (4, 12, 1, 1))
+    trans[:, cols[:n_parts]] = sample["gt_pose_list"][1:]
+    trans[:, cols[n_parts]] = sample["gt_pose_list"][1:, 0]
+    trans[..., :3, 3] += 0.002 * rng.randn(4, 12, 3).astype(np.float32)
+
+    outs = []
+    for dev in ("cpu", cuda):
+        cano = torch.from_numpy(sample["cano_pc"]).to(dev)
+        pcs = torch.from_numpy(sample["pc_list"]).to(dev)
+        tr = torch.from_numpy(trans).to(dev)
+        s = refine_seg_motion(cano, pcs, tr, seg, n_it=2).cpu().numpy()
+        refined = s.copy()
+        s = graph.denoise_seg_label(s, cano, min_num=20)
+        s = graph.merging_wrapper(s, tr, cano, 3e-2, n_it=2)
+        edges, cost, uni = graph.mst_wrapper(s, tr, cano, return_cost=True)
+        outs.append((refined, s, edges, cost, uni))
+    for got, ref in zip(outs[1][:3], outs[0][:3]):
+        np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(outs[1][4], outs[0][4])
+    # float32 chains through sin/cos/atan2, rounded differently on the card
+    np.testing.assert_allclose(outs[1][3], outs[0][3], rtol=1e-4, atol=1e-5)
+    assert (outs[1][0] != seg).any()  # the E-step moved points
+
+
+def test_metrics_on_card_match_cpu(cuda):
+    from reart_tpu_torch import metrics
+    from reart_tpu_torch.data.synth import make_robot_sample
+
+    sample = make_robot_sample(n_frames=4, n_points=1024, n_parts=4, seed=2)
+    pred, obs = sample["gt_pc_list"], sample["pc_list"]
+    for reduction in ("mean", "sum"):
+        on_card = metrics.compute_chamfer_list(pred, obs, reduction)  # card
+        on_cpu = metrics.compute_chamfer_list(pred, obs, reduction,
+                                              device="cpu")
+        assert on_card == pytest.approx(on_cpu, rel=1e-5)
+    trans = sample["gt_pose_list"][1:]
+    conn = np.array([[1, 0], [2, 0], [3, 0]])
+    complete = np.concatenate([sample["cano_pc"][None], pred])
+    kw = dict(complete_pred_pc_list=complete, include_group=True)
+    on_card = metrics.energy(pred, obs, trans, conn, sample["gt_cano_part"],
+                             **kw)
+    on_cpu = metrics.energy(pred, obs, trans, conn, sample["gt_cano_part"],
+                            device="cpu", **kw)
+    for k in on_cpu:
+        assert on_card[k] == pytest.approx(on_cpu[k], rel=1e-4, abs=1e-5), k

@@ -65,10 +65,11 @@ def histories():
         return np.asarray(jax.random.gumbel(jax.random.fold_in(key, it),
                                             (N, P), jnp.float32))
 
-    model = base_params_from_jax(jax.tree.map(np.asarray, params))
+    model = base_params_from_jax(jax.tree.map(np.asarray, params),
+                                 device="cpu")
     _, hist = fit_base(model, FitConfig(**FIT), cano, pcs,
                        flow_ctx=FlowContext.from_lists(anchors, flows),
-                       noise=noise)
+                       noise=noise, device="cpu")
     return ({k: np.asarray(v) for k, v in jax_hist.items()},
             {k: v.numpy() for k, v in hist.items()})
 
@@ -117,8 +118,12 @@ def test_assign_context_matches_jax():
 def test_port_imports_no_jax():
     code = ("import sys, reart_tpu_torch, reart_tpu_torch.train, "
             "reart_tpu_torch.interop, reart_tpu_torch.ops.cuda_nn, "
-            "reart_tpu_torch.ops.cuda_fps, reart_tpu_torch.ops.cuda_auction; "
+            "reart_tpu_torch.ops.cuda_fps, reart_tpu_torch.ops.cuda_auction, "
+            "reart_tpu_torch.cli, reart_tpu_torch.metrics, "
+            "reart_tpu_torch.graph, reart_tpu_torch.checkpoint, "
+            "reart_tpu_torch.data.robot, reart_tpu_torch.data.synth; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
+            "assert 'networkx' not in sys.modules, 'networkx imported'; "
             "assert 'reart_tpu' not in sys.modules, 'reart_tpu imported'")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
