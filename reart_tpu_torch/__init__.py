@@ -56,3 +56,15 @@ def to_numpy(value):
     if isinstance(value, _torch.Tensor):
         return value.detach().cpu().numpy()
     return np.asarray(value)
+
+
+def tree_to_numpy(value):
+    """`value` with every tensor turned into a numpy array, through dicts,
+    lists and tuples (what a pickle that names no device holds)."""
+    if isinstance(value, _torch.Tensor):
+        return value.detach().cpu().numpy()
+    if isinstance(value, dict):
+        return {k: tree_to_numpy(v) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return type(value)(tree_to_numpy(v) for v in value)
+    return value

@@ -22,7 +22,8 @@
 // converges. State is the column-owner map c2r as in the TPU kernel, kept in
 // shared memory with the prices, a per-row "assigned" flag and a 64-bit bid
 // key per column. A warp computes one row's top-2 (lanes stride the columns,
-// then a shuffle merge with lowest-column ties) and its lane 0 posts
+// then a shuffle merge with lowest-column ties; auction_common.cuh, shared
+// with auction_hbm.cu) and its lane 0 posts
 // atomicMax(key[j1], order(bid) << 32 | ~row): the highest bid wins and
 // equal bids go to the lowest row, in any order of arrival. The column pass
 // then applies prices and owners; old owners and new winners are disjoint
@@ -30,44 +31,15 @@
 // count. Shared memory is 16 bytes per column plus a byte per row, so
 // M <= ~14000; the main path uses M = 1024.
 
-#include <climits>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "auction_common.cuh"
 
 namespace {
 
+using auction::EpsList;
+using auction::kMaxEps;
+
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxEps = 8;
-
-struct EpsList {
-  float v[kMaxEps];
-  int n;
-};
-
-// float -> uint32 that orders like the float
-__device__ __forceinline__ uint32_t ordered_bits(float f) {
-  const uint32_t u = __float_as_uint(f);
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-__device__ __forceinline__ float from_ordered(uint32_t o) {
-  const uint32_t u = (o & 0x80000000u) ? (o & 0x7fffffffu) : ~o;
-  return __uint_as_float(u);
-}
-
-// (best value, its column, best value over the other columns)
-__device__ __forceinline__ void top2_merge(float& b1, int& j1, float& b2,
-                                           float ob1, int oj1, float ob2) {
-  if (ob1 > b1 || (ob1 == b1 && oj1 < j1)) {
-    b2 = fmaxf(ob2, b1);
-    b1 = ob1;
-    j1 = oj1;
-  } else {
-    b2 = fmaxf(b2, ob1);
-  }
-}
 
 __global__ void __launch_bounds__(kThreads)
 auction_kernel(const float* __restrict__ benefit,
@@ -105,33 +77,12 @@ auction_kernel(const float* __restrict__ benefit,
       // bids: one warp per unassigned row
       for (int r = warp; r < n; r += kWarps) {
         if (assigned[r]) continue;
-        const float* row = benefit + (size_t)r * m;
-        float b1 = -INFINITY, b2 = -INFINITY;
-        int j1 = INT_MAX;
-#pragma unroll 4
-        for (int j = lane; j < m; j += 32) {
-          const float v = row[j] - price[j];
-          if (v > b1) {
-            b2 = b1;
-            b1 = v;
-            j1 = j;
-          } else {
-            b2 = fmaxf(b2, v);
-          }
-        }
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-          const float ob1 = __shfl_down_sync(0xffffffffu, b1, off);
-          const int oj1 = __shfl_down_sync(0xffffffffu, j1, off);
-          const float ob2 = __shfl_down_sync(0xffffffffu, b2, off);
-          top2_merge(b1, j1, b2, ob1, oj1, ob2);
-        }
+        float b1, b2;
+        int j1;
+        auction::top2_row(benefit + (size_t)r * m, price, m, lane, b1, j1,
+                          b2);
         if (lane == 0) {
-          const float bid = (b1 - b2) + eps_e;
-          const unsigned long long k =
-              (static_cast<unsigned long long>(ordered_bits(bid)) << 32) |
-              static_cast<uint32_t>(~static_cast<uint32_t>(r));
-          atomicMax(&key[j1], k);
+          atomicMax(&key[j1], auction::bid_key((b1 - b2) + eps_e, r));
         }
       }
       __syncthreads();
@@ -139,10 +90,8 @@ auction_kernel(const float* __restrict__ benefit,
       for (int j = tid; j < m; j += kThreads) {
         const unsigned long long k = key[j];
         if (k != 0ull) {
-          const float bid = from_ordered(static_cast<uint32_t>(k >> 32));
-          const int winner =
-              static_cast<int>(~static_cast<uint32_t>(k & 0xffffffffull));
-          price[j] = price[j] + bid;
+          const int winner = auction::key_row(k);
+          price[j] = price[j] + auction::key_bid(k);
           const int old = c2r[j];
           if (old >= 0) {
             assigned[old] = 0;

@@ -32,9 +32,7 @@
 // owns a tile of columns and scans all rows, so no global atomics and no
 // zero-initialised buffer are needed.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "auction_common.cuh"
 
 namespace {
 
@@ -97,16 +95,6 @@ row_top2_kernel(const float* __restrict__ benefit,
   }
 }
 
-// float -> unsigned whose order is the float's order
-__device__ __forceinline__ uint32_t ordered(float x) {
-  const uint32_t u = __float_as_uint(x);
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-__device__ __forceinline__ float unordered(uint32_t u) {
-  return __uint_as_float((u & 0x80000000u) ? (u & 0x7fffffffu) : ~u);
-}
-
 __global__ void __launch_bounds__(kColThreads)
 col_winner_kernel(const float* __restrict__ bid,
                   const long long* __restrict__ best_j, int n, int m,
@@ -124,9 +112,7 @@ col_winner_kernel(const float* __restrict__ bid,
     const float x = bb[r];
     const long long c = bj[r] - c0;
     if (x > -INFINITY && c >= 0 && c < cnt) {
-      const unsigned long long k =
-          ((unsigned long long)ordered(x) << 32) | (0xffffffffu - (uint32_t)r);
-      atomicMax(&key[c], k);
+      atomicMax(&key[c], auction::bid_key(x, r));
     }
   }
   __syncthreads();
@@ -137,8 +123,8 @@ col_winner_kernel(const float* __restrict__ bid,
       col_bid[o] = -INFINITY;
       col_winner[o] = 0;
     } else {
-      col_bid[o] = unordered((uint32_t)(k >> 32));
-      col_winner[o] = 0xffffffffu - (uint32_t)(k & 0xffffffffu);
+      col_bid[o] = auction::key_bid(k);
+      col_winner[o] = auction::key_row(k);
     }
   }
 }

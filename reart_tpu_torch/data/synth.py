@@ -6,6 +6,10 @@
 (static body, lid, drawer, door, slider tray, top flap: three revolute and
 two prismatic joints) in the world frame; `make_toy_robot_sample` the
 three-part robot of the command-line tests (a base and two hinged arms).
+
+A sample also carries what inverse kinematics reads off a RobotSequence,
+in its form: `pose_list` (per frame {part: 4x4 world pose}, frame 0 the
+identity), `cano_idx` and `novel_pose_list` (poses outside the sequence).
 """
 
 from __future__ import annotations
@@ -75,10 +79,12 @@ def _carry(points, part_id, poses):
     return out
 
 
-def robot_sample(clouds, part_ids, poses, gt_edges, cano_idx: int = 0):
+def robot_sample(clouds, part_ids, poses, gt_edges, cano_idx: int = 0,
+                 novel_poses=()):
     """The sample dict of a robot sequence. clouds (T, N, 3): the observed
     cloud of every frame; part_ids (T, N): their GT parts; poses: T dicts
-    {part: 4x4 world pose}; gt_edges: (child, parent) part pairs."""
+    {part: 4x4 world pose}; gt_edges: (child, parent) part pairs;
+    novel_poses: dicts like `poses` for the retargeting error."""
     complete_pc = np.asarray(clouds, np.float32)
     complete_part = np.asarray(part_ids)
     cano_pc = complete_pc[cano_idx]
@@ -102,30 +108,47 @@ def robot_sample(clouds, part_ids, poses, gt_edges, cano_idx: int = 0):
         "complete_gt_pc_list": complete_gt,
         "complete_gt_part_list": complete_part,
         "gt_edges": [tuple(e) for e in gt_edges],
+        "pose_list": list(poses),
+        "cano_idx": cano_idx,
+        "novel_pose_list": list(novel_poses),
     }
+
+
+# the table's parts that rotate (body, lid, door, flap): a revolute-only
+# kinematic model can hold them
+REVOLUTE_PARTS = (0, 1, 3, 5)
 
 
 def make_robot_sample(n_frames: int = 10, n_points: int = 4096,
                       n_parts: int = 6, seed: int = 0, cano_idx: int = 0,
-                      resample: bool = True) -> dict:
+                      resample: bool = True, parts=None) -> dict:
     """The articulated table as a robot sample: `n_parts` (2..6, a prefix
-    of the part table) box-sampled rigid parts, every joint a child of the
-    static body. With `resample` each frame's observed cloud is its own
-    draw from the surfaces' volumes (frames of a scan share no points);
-    without, every frame is the first cloud carried by the GT poses."""
-    assert 2 <= n_parts <= len(_PARTS)
+    of the part table) box-sampled rigid parts, or the rows `parts` of the
+    table (the static body first), relabelled 0..P-1; every joint a child
+    of the static body. With `resample` each frame's observed cloud is its
+    own draw from the surfaces' volumes (frames of a scan share no points);
+    without, every frame is the first cloud carried by the GT poses. The
+    novel poses lie between two frames and past the last one."""
+    if parts is None:
+        parts = tuple(range(n_parts))
+    table = [_PARTS[i] for i in parts]
+    n_parts = len(table)
+    assert 2 <= n_parts <= len(_PARTS) and parts[0] == 0
     rng = np.random.RandomState(seed)
     n_per = n_points // n_parts
     counts = [n_points - n_per * (n_parts - 1)] + [n_per] * (n_parts - 1)
     part_id = np.repeat(np.arange(n_parts), counts)
-    poses = [{p: _part_pose(kind, param, v)
-              for p, (_, _, kind, param) in enumerate(_PARTS[:n_parts])}
-             for v in range(n_frames)]
+
+    def poses_at(v):
+        return {p: _part_pose(kind, param, v)
+                for p, (_, _, kind, param) in enumerate(table)}
+
+    poses = [poses_at(v) for v in range(n_frames)]
 
     def draw():
         return np.concatenate([
             rng.uniform(lo, hi, (n, 3))
-            for (lo, hi, _, _), n in zip(_PARTS[:n_parts], counts)])
+            for (lo, hi, _, _), n in zip(table, counts)])
 
     rest = draw()
     clouds = []
@@ -134,7 +157,8 @@ def make_robot_sample(n_frames: int = 10, n_points: int = 4096,
             rest = draw()
         clouds.append(_carry(rest, part_id, poses[v]))
     return robot_sample(clouds, [part_id] * n_frames, poses,
-                        [(p, 0) for p in range(1, n_parts)], cano_idx)
+                        [(p, 0) for p in range(1, n_parts)], cano_idx,
+                        [poses_at(0.5 * n_frames), poses_at(n_frames + 0.5)])
 
 
 def make_toy_robot_sample(n_per: int = 120, n_frames: int = 4,
@@ -147,8 +171,11 @@ def make_toy_robot_sample(n_per: int = 120, n_frames: int = 4,
     arm_r = rs.uniform([0.3, 0.2, -0.1], [1.0, 0.45, 0.1], (n_per, 3))
     cano = np.concatenate([base, arm_l, arm_r])
     part_id = np.repeat([0, 1, 2], n_per)
-    poses = [{0: np.eye(4), 1: _rotz4(0.25 * i), 2: _rotz4(-0.2 * i)}
-             for i in range(n_frames)]
+    def poses_at(i):
+        return {0: np.eye(4), 1: _rotz4(0.25 * i), 2: _rotz4(-0.2 * i)}
+
+    poses = [poses_at(i) for i in range(n_frames)]
     clouds = [_carry(cano, part_id, pose) for pose in poses]
     return robot_sample(clouds, [part_id] * n_frames, poses,
-                        [(1, 0), (2, 0)], cano_idx)
+                        [(1, 0), (2, 0)], cano_idx,
+                        [poses_at(1.5), poses_at(n_frames + 0.5)])

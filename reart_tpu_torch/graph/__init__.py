@@ -16,7 +16,12 @@ from reart_tpu_torch.graph.costs import (
     fps_sample_cano,
     frobenius_cost,
 )
-from reart_tpu_torch.graph.kinematics import extract_kinematic
+from reart_tpu_torch.graph.kinematics import (
+    build_graph,
+    edge_index2edges,
+    extract_kinematic,
+    to_dag,
+)
 from reart_tpu_torch.graph.mst import (
     denoise_seg_label,
     filter_seg_label,

@@ -79,13 +79,17 @@ def transform_points_blend(weight: torch.Tensor, trans_list: torch.Tensor,
 
 
 def base_forward(model: BaseModel, cano_pc: torch.Tensor,
-                 noise: torch.Tensor, tau=1.0):
+                 noise: torch.Tensor, tau=1.0,
+                 proposal_6d: torch.Tensor | None = None,
+                 proposal_t: torch.Tensor | None = None):
     """Returns (pc_trans_list (T-1, N, 3), seg_argmax (N,), trans_list
-    (T-1, P, 4, 4)). `noise` is the (N, P) Gumbel draw."""
+    (T-1, P, 4, 4)). `noise` is the (N, P) Gumbel draw; `proposal_6d` /
+    `proposal_t` stand in for the model's own (inverse kinematics)."""
     logits = model.seg(cano_pc)
     weight = gumbel_softmax(logits, tau, noise)
-    rotation = rotation_6d_to_matrix(model.proposal_6d)
-    trans_list = rt_to_transform(rotation, model.proposal_t)
+    p6d = model.proposal_6d if proposal_6d is None else proposal_6d
+    pt = model.proposal_t if proposal_t is None else proposal_t
+    trans_list = rt_to_transform(rotation_6d_to_matrix(p6d), pt)
     pc_trans_list = transform_points_blend(weight, trans_list, cano_pc)
     return pc_trans_list, torch.argmax(logits, dim=-1), trans_list
 

@@ -48,6 +48,10 @@ SIGNATURES = {
     # benefit, price_in, B, N, M, eps (host float*), n_eps, max_sweeps,
     # row_to_col, price_out, stream
     "reart_auction_resident": (_P, _P, _I, _I, _I, _P, _I, _I, _P, _P, _P),
+    # benefit, price_in, B, N, M, eps (host float*), n_eps, max_sweeps,
+    # row_to_col, price_out, key, c2r, assigned, owned, stats, stream
+    "reart_auction_resident_hbm": (_P, _P, _I, _I, _I, _P, _I, _I, _P, _P, _P,
+                                   _P, _P, _P, _P, _P),
     # query, ref, B, N, M, ref_div, k, out_d, out_i, stream
     "reart_nn_topk": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
     # query, ref, B, N, M, out_d, out_i, out_c, stream

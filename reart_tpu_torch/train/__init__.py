@@ -1,5 +1,5 @@
-"""Per-sequence test-time optimisation engine. Slice 1 ports the
-relaxation (base) fit; the kinematic fit and the corr trainer follow."""
+"""Per-sequence test-time optimisation engine: the relaxation (base) fit
+and the projection (kinematic) fit; the corr trainer follows."""
 
 from reart_tpu_torch.train.engine import (
     AssignContext,
@@ -8,11 +8,12 @@ from reart_tpu_torch.train.engine import (
     build_assign_context,
     fit,
     fit_base,
+    fit_kinematic,
     make_optimizer,
 )
 from reart_tpu_torch.train.schedules import tau_cosine
 
 __all__ = [
     "AssignContext", "FitConfig", "FlowContext", "build_assign_context",
-    "fit", "fit_base", "make_optimizer", "tau_cosine",
+    "fit", "fit_base", "fit_kinematic", "make_optimizer", "tau_cosine",
 ]

@@ -10,26 +10,42 @@ points without gradient.
 Randomness is injected: `noise(it)` returns the (N, P) Gumbel draw of
 iteration `it`. The LAP forward at a chunk start `it0` reuses the draw of
 iteration `it0` with tau(it0 + 1), on the parameters before that step, as
-the JAX engine does, so both packages can be handed the same draws.
+the JAX engine does, so both packages can be handed the same draws. The
+projection ("kinematic") fit runs the same loop on a KinematicModel with
+one Adam group and draws no noise.
+
+With `checkpoint_dir` the fit leaves `fit_state.pkl` there every
+`checkpoint_every` iterations (parameters, optimizer state, prices,
+history) and the next call resumes from it; the file goes when the fit
+completes. There are no dispatch chunks: a log line, a snapshot or a save
+falls on the first iteration boundary (in the assignment phase: the first
+LAP boundary) at or past each multiple.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import os
+import pickle
 from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
-from reart_tpu_torch import resolve_device
+from reart_tpu_torch import resolve_device, tree_to_numpy
 from reart_tpu_torch.losses import assignment_loss, flow_loss, recon_loss
 from reart_tpu_torch.models.base_model import (
     BaseModel,
     base_forward,
     gumbel_noise,
 )
-from reart_tpu_torch.ops.assignment import auction_lap
+from reart_tpu_torch.models.kinematic import (
+    KinematicModel,
+    KinematicState,
+    kinematic_forward,
+)
+from reart_tpu_torch.ops.assignment import auction_lap, require_dense
 from reart_tpu_torch.ops.distance import pairwise_sqdist
 from reart_tpu_torch.ops.interpolate import blend_anchor_motion_batched
 from reart_tpu_torch.ops.sampling import farthest_point_sample, index_points
@@ -71,6 +87,14 @@ class FitConfig:
     cano_idx: int = 0
     # auction sweep bound per epsilon phase
     assign_sweeps: int = 100
+    # column window of the banded LAP for problems past 1024^2: -1 scales it
+    # with the problem, 0 takes the dense path. The banded solve, its quality
+    # guard (banded against dense matched cost on the first problem,
+    # relative tolerance) and the guard's re-probe cadence are not ported:
+    # on a CUDA device such a LAP raises unless assign_band is 0
+    assign_band: int = -1
+    assign_band_guard: float = 0.05
+    assign_band_reprobe: int = 1000
 
 
 class FlowContext(NamedTuple):
@@ -154,23 +178,103 @@ def _flow_term(pc_trans_list, cano_pc, flow_ctx: FlowContext,
                                        robust=cfg.use_robust_loss)
 
 
+def _to_device(value, dev):
+    """Inverse of tree_to_numpy. Scalars (Adam's step counts) stay on the
+    CPU, where the optimizer keeps them."""
+    if isinstance(value, np.ndarray):
+        return torch.as_tensor(value, device=dev if value.ndim else "cpu")
+    if isinstance(value, dict):
+        return {k: _to_device(v, dev) for k, v in value.items()}
+    if isinstance(value, list):
+        return [_to_device(v, dev) for v in value]
+    return value
+
+
 def fit(forward_fn: ForwardFn, model: torch.nn.Module, cfg: FitConfig,
         cano_pc: torch.Tensor, pc_list: torch.Tensor,
-        noise: Callable[[int], torch.Tensor],
-        flow_ctx: FlowContext | None = None, two_group_opt: bool = False):
+        noise: Callable[[int], torch.Tensor] | None,
+        flow_ctx: FlowContext | None = None, two_group_opt: bool = False,
+        log_every: int | None = None, checkpoint_dir: str | None = None,
+        checkpoint_every: int = 2000, snapshot_cb=None,
+        snapshot_every: int | None = None):
     """Run the fit in place on `model`. Returns (model, history): history
     maps total_loss, recon_loss, ass_loss and flow_loss to (n_iter,)
     float32 tensors on the model's device, zeros where a term is inactive.
-    `noise(it)` is called once per iteration, in order."""
+    `noise(it)` is called once per iteration, in order (a resumed fit calls
+    it for the iterations already done too and drops those draws, so a
+    stateful generator stays in step); None for a forward without noise.
+
+    log_every: print the last iteration's terms each time the count of
+    iterations done crosses a multiple (one read-back per print).
+    snapshot_cb(done, model): called under the same rule at multiples of
+    snapshot_every, never after the last iteration.
+    checkpoint_dir: resume from `fit_state.pkl` there when it exists, save
+    to it (atomically) every checkpoint_every iterations, remove it when
+    the fit completes."""
     dev = cano_pc.device
     opt = make_optimizer(model, cfg, two_groups=two_group_opt)
     tau_fn = functools.partial(tau_cosine, max_iter=cfg.n_iter,
                                end_temp=cfg.end_tau, start_temp=cfg.start_tau)
     history = {k: torch.zeros(cfg.n_iter, dtype=torch.float32, device=dev)
                for k in HISTORY_KEYS}
+    ckpt_path = (os.path.join(checkpoint_dir, "fit_state.pkl")
+                 if checkpoint_dir else None)
+    resume_done = 0
+    price = None
+    if ckpt_path is not None and os.path.exists(ckpt_path):
+        with open(ckpt_path, "rb") as f:
+            saved = pickle.load(f)
+        resume_done = int(saved["done"])
+        model.load_state_dict(_to_device(saved["params"], dev))
+        opt.load_state_dict(_to_device(saved["opt_state"], dev))
+        if saved["price"] is not None:
+            price = torch.as_tensor(saved["price"], device=dev)
+        for k, v in saved["history"].items():
+            history[k][:resume_done] = torch.as_tensor(v, device=dev)
+        print(f"[fit] resuming from iteration {resume_done}", flush=True)
+        if noise is not None:
+            for it in range(resume_done):
+                noise(it)
+    last_saved = resume_done
 
     def draw(it):
+        if noise is None:
+            return None
         return torch.as_tensor(noise(it), dtype=torch.float32, device=dev)
+
+    def boundary(done, step_sz):
+        """After `step_sz` more iterations, `done` in all: log, snapshot
+        and save where a multiple was crossed."""
+        nonlocal last_saved
+
+        def crossed(every):
+            return done // every != (done - step_sz) // every
+
+        if log_every is not None and (crossed(max(log_every, 1))
+                                      or done >= cfg.n_iter):
+            last = {k: float(history[k][done - 1]) for k in HISTORY_KEYS}
+            msg = " | ".join(f"{k}: {v:.3f}" for k, v in last.items()
+                             if v != 0.0)
+            print(f"iteration {done - 1} | {msg}", flush=True)
+        if (snapshot_cb is not None and done < cfg.n_iter
+                and crossed(max(snapshot_every or cfg.n_iter, 1))):
+            snapshot_cb(done, model)
+        if (ckpt_path is not None and done < cfg.n_iter
+                and done - last_saved >= checkpoint_every):
+            os.makedirs(checkpoint_dir, exist_ok=True)
+            payload = {
+                "done": done,
+                "params": tree_to_numpy(dict(model.state_dict())),
+                "opt_state": tree_to_numpy(opt.state_dict()),
+                "price": None if price is None else tree_to_numpy(price),
+                "history": {k: tree_to_numpy(v[:done])
+                            for k, v in history.items()},
+            }
+            tmp = ckpt_path + ".tmp"
+            with open(tmp, "wb") as f:
+                pickle.dump(payload, f)
+            os.replace(tmp, ckpt_path)  # atomic: never half a file
+            last_saved = done
 
     def step(it, g, perm=None, actx=None):
         pc_trans_list, _, _ = forward_fn(model, cano_pc, g, tau_fn(it + 1))
@@ -193,15 +297,20 @@ def fit(forward_fn: ForwardFn, model: torch.nn.Module, cfg: FitConfig,
 
     use_assign = cfg.use_assign_loss and cfg.assign_iter < cfg.n_iter
     n_recon = min(cfg.assign_iter, cfg.n_iter) if use_assign else cfg.n_iter
-    for it in range(n_recon):
+    for it in range(resume_done, n_recon):
         step(it, draw(it))
+        boundary(it + 1, 1)
 
     if use_assign:
         actx = build_assign_context(cano_pc, pc_list, cfg.downsample)
-        price = torch.zeros(actx.pc_tgt.shape[:2], dtype=torch.float32,
-                            device=dev)
+        num_fps = actx.pc_tgt.shape[1]
+        require_dense(actx.pc_tgt, num_fps, num_fps, cfg.assign_band)
+        if price is None:
+            price = torch.zeros(actx.pc_tgt.shape[:2], dtype=torch.float32,
+                                device=dev)
         gap = max(1, cfg.assign_gap)
-        for it0 in range(n_recon, cfg.n_iter, gap):
+        # a save falls on a LAP boundary, so a resumed fit starts on one
+        for it0 in range(max(n_recon, resume_done), cfg.n_iter, gap):
             g0 = draw(it0)
             with torch.no_grad():
                 pc_trans_list, _, _ = forward_fn(model, cano_pc, g0,
@@ -214,22 +323,27 @@ def fit(forward_fn: ForwardFn, model: torch.nn.Module, cfg: FitConfig,
                     cost, eps_min=1e-4, num_scales=2, scale_factor=50.0,
                     max_sweeps=cfg.assign_sweeps, price=price,
                     return_price=True)
-            for it in range(it0, min(it0 + gap, cfg.n_iter)):
+            end = min(it0 + gap, cfg.n_iter)
+            for it in range(it0, end):
                 step(it, g0 if it == it0 else draw(it), perm, actx)
+            boundary(end, end - it0)
+    if ckpt_path is not None and os.path.exists(ckpt_path):
+        os.remove(ckpt_path)  # the fit completed: nothing to resume
     return model, history
 
 
 def fit_base(params: BaseModel, cfg: FitConfig, cano_pc, pc_list,
              flow_ctx: FlowContext | None = None,
              noise: Callable[[int], torch.Tensor] | None = None,
-             device=None):
+             device=None, **fit_kw):
     """Relaxation-stage fit (reference `--model=base`).
 
     params: the BaseModel, trained in place after a move to `device` (the
     card when None; `device="cpu"` runs the plain versions on the CPU).
     cano_pc (N, 3) and pc_list (T-1, N, 3): arrays or tensors. noise(it) ->
     (N, P) Gumbel draw; by default drawn from a torch.Generator seeded with
-    0 on the device. Returns (params, history)."""
+    0 on the device. `fit_kw`: log_every, checkpoint_dir, checkpoint_every,
+    snapshot_cb, snapshot_every of `fit`. Returns (params, history)."""
     device = resolve_device(device)
     params = params.to(device)
     cano = torch.as_tensor(cano_pc, dtype=torch.float32, device=device)
@@ -245,4 +359,33 @@ def fit_base(params: BaseModel, cfg: FitConfig, cano_pc, pc_list,
             return gumbel_noise(shape, gen, device)
 
     return fit(base_forward, params, cfg, cano, pcs, noise,
-               flow_ctx=flow_ctx, two_group_opt=True)
+               flow_ctx=flow_ctx, two_group_opt=True, **fit_kw)
+
+
+def _kinematic_forward_fn(model: KinematicModel, cano_pc, _noise, _tau, *,
+                          state: KinematicState):
+    """The fit always forwards the canonical cloud, where the 1-NN label
+    transfer is the identity: the state's own labels are passed."""
+    return kinematic_forward(model, state, cano_pc, seg_part=state.seg_part)
+
+
+def fit_kinematic(params: KinematicModel, state: KinematicState,
+                  cfg: FitConfig, pc_list,
+                  flow_ctx: FlowContext | None = None, device=None,
+                  **fit_kw):
+    """Projection-stage fit (reference `--model=kinematic`): the same loss
+    stack as the relaxation fit, one Adam group over all parameters at
+    trans_lr, no Gumbel noise.
+
+    params and state are moved to `device` (the card when None); the model
+    is trained in place. pc_list (T-1, N, 3): array or tensor. `fit_kw` as
+    for `fit_base`. Returns (params, history)."""
+    device = resolve_device(device)
+    params = params.to(device)
+    state = state.to(device)
+    pcs = torch.as_tensor(pc_list, dtype=torch.float32, device=device)
+    if flow_ctx is not None:
+        flow_ctx = flow_ctx.to(device)
+    forward_fn = functools.partial(_kinematic_forward_fn, state=state)
+    return fit(forward_fn, params, cfg, state.cano_pc, pcs, None,
+               flow_ctx=flow_ctx, two_group_opt=False, **fit_kw)

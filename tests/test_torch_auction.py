@@ -5,7 +5,13 @@ interpret mode (the cases of tests/test_assignment.py). row_to_col must be
 equal; prices within rtol 1e-5, atol 1e-6. The plain versions of the two
 sweep kernels (csrc/auction_sweep.cu) against row_top2_pallas and
 col_winner_max_pallas in interpret mode: indices equal, values equal (one
-subtraction, a maximum: no rounding differs)."""
+subtraction, a maximum: no rounding differs). The plain version of the
+streamed one-launch kernel (csrc/auction_hbm.cu) against the Pallas kernel
+in interpret mode at the cases of tests/test_assignment.py::TestResidentHBM
+(two column strips, ts=128), cold and warm: row_to_col equal, prices within
+rtol 1e-5; and `auction_lap`'s choice of solver by size."""
+
+import types
 
 import numpy as np
 import pytest
@@ -170,3 +176,115 @@ def test_resident_wrapper_checks_inputs():
     with pytest.raises(ValueError):  # no epsilon phase
         cuda_auction.auction_solve_resident(
             torch.zeros((1, 4, 8)), torch.zeros((1, 8)), (), 10)
+
+
+HBM_CASES = {
+    # seed, shape, eps_list, warm start
+    "cold": (5, (2, 64, 256), (1e-2, 1e-3), False),
+    "warm": (6, (2, 32, 384), (1e-3,), True),
+    "sweep_bound": (5, (2, 64, 256), (1e-2, 1e-3), False),
+}
+
+
+@pytest.mark.parametrize("case", list(HBM_CASES))
+def test_resident_hbm_plain_matches_pallas(case):
+    from reart_tpu.ops.pallas_auction import auction_solve_resident_hbm
+
+    seed, shape, eps_list, warm = HBM_CASES[case]
+    sweeps = 3 if case == "sweep_bound" else 200
+    cost = np.random.RandomState(seed).rand(*shape).astype(np.float32)
+    price = np.zeros((shape[0], shape[2]), np.float32)
+    if warm:
+        _, price = _jax_lap(cost, False, **WARM)
+    with pltpu.force_tpu_interpret_mode():
+        r_ref, p_ref = auction_solve_resident_hbm(
+            jnp.asarray(-cost), jnp.asarray(price), eps_list, sweeps, ts=128)
+    r, p, stats = cuda_auction.auction_solve_resident_hbm(
+        torch.from_numpy(-cost), torch.from_numpy(np.array(price)), eps_list,
+        sweeps, return_stats=True)
+    np.testing.assert_array_equal(r.numpy(), np.asarray(r_ref))
+    np.testing.assert_allclose(p.numpy(), np.asarray(p_ref), rtol=1e-5,
+                               atol=1e-6)
+    assert ((r.numpy() < 0).any()) == (case == "sweep_bound")
+    # sweeps run and rows that bid, per element and phase
+    assert stats.shape == (shape[0], len(eps_list), 2)
+    assert (stats[..., 0] >= 1).all() and (stats[..., 0] <= sweeps).all()
+    assert (stats[..., 1] >= shape[1]).all()
+    if case == "sweep_bound":
+        assert int(stats[..., 0].max()) == sweeps
+    # the two one-launch kernels share one plain version
+    r2, p2 = cuda_auction.auction_solve_resident(
+        torch.from_numpy(-cost), torch.from_numpy(np.array(price)), eps_list,
+        sweeps)
+    assert torch.equal(r, r2) and torch.equal(p, p2)
+
+
+def test_auction_lap_picks_its_solver_by_size(monkeypatch):
+    """Up to 1024^2 the resident kernel, up to 2048^2 the streamed one, the
+    sweeps past that; use_resident=False takes no one-launch kernel at all
+    and True asks for the resident one."""
+    from reart_tpu_torch.ops import assignment
+
+    assert cuda_auction.resident_available(1024, 1024)
+    assert not cuda_auction.resident_hbm_available(1024, 1024)
+    for n, m in ((2048, 2048), (1024, 2048), (1025, 1025), (700, 1501)):
+        assert not cuda_auction.resident_available(n, m)
+        assert cuda_auction.resident_hbm_available(n, m), (n, m)
+    for n, m in ((2048, 2049), (4096, 4096), (2048, 1024), (1, 2 ** 21)):
+        assert not cuda_auction.resident_hbm_available(n, m), (n, m)
+
+    calls = []
+
+    def spy(name):
+        def solve(benefit, price, *_):
+            calls.append(name)
+            return torch.zeros(benefit.shape[:2], dtype=torch.int64), price
+        return solve
+
+    monkeypatch.setattr(assignment, "auction_solve_resident", spy("resident"))
+    monkeypatch.setattr(assignment, "auction_solve_resident_hbm",
+                        spy("streamed"))
+    monkeypatch.setattr(assignment, "_auction_phase", spy("sweeps"))
+    kw = dict(num_scales=1, max_sweeps=2)
+    auction_lap(torch.rand((1, 8, 8)), **kw)
+    auction_lap(torch.rand((1, 8, 8)), use_resident=False, **kw)
+    auction_lap(torch.rand((1, 32, 32800)), **kw)
+    auction_lap(torch.rand((1, 32, 32800)), use_resident=False, **kw)
+    auction_lap(torch.rand((1, 32, 32800)), use_resident=True, **kw)
+    auction_lap(torch.zeros((1, 1, 2048 ** 2 + 1)), **kw)
+    assert calls == ["resident", "sweeps", "streamed", "sweeps", "resident",
+                     "sweeps"]
+
+
+def test_banded_request_by_device():
+    """What the port does with a LAP past 1024^2: dense on the CPU whatever
+    `assign_band` says (the JAX package's banded path needs the TPU); the
+    same request for a CUDA device is turned away unless assign_band is 0,
+    which is the only value the JAX package resolves to "no band"."""
+    from reart_tpu.ops.assignment import resolve_band as jax_resolve_band
+    from reart_tpu_torch.ops.assignment import require_dense
+
+    for n in (2048, 4096, 8192):
+        assert jax_resolve_band(0, n) == 0
+        assert jax_resolve_band(-1, n) > 0 and jax_resolve_band(512, n) > 0
+    cpu = torch.zeros(1)
+    for band in (-1, 0, 512):
+        require_dense(cpu, 2048, 2048, band)  # no raise on the CPU
+    on_card = types.SimpleNamespace(device=torch.device("cuda"))
+    require_dense(on_card, 2048, 2048, 0)
+    require_dense(on_card, 1024, 1024, -1)  # within 1024^2: never banded
+    for band in (-1, 512):
+        with pytest.raises(NotImplementedError, match="slice 4"):
+            require_dense(on_card, 2048, 2048, band)
+
+
+def test_streamed_wrapper_checks_inputs():
+    with pytest.raises(ValueError):  # N > M
+        cuda_auction.auction_solve_resident_hbm(
+            torch.zeros((1, 8, 4)), torch.zeros((1, 4)), (1e-3,), 10)
+    with pytest.raises(ValueError):  # nine epsilon phases
+        cuda_auction.auction_solve_resident_hbm(
+            torch.zeros((1, 4, 8)), torch.zeros((1, 8)), (1e-3,) * 9, 10)
+    with pytest.raises(ValueError):  # prices of another width
+        cuda_auction.auction_solve_resident_hbm(
+            torch.zeros((1, 4, 8)), torch.zeros((1, 7)), (1e-3,), 10)
