@@ -8,7 +8,7 @@ Phases, each of which raises on failure (exit code != 0):
   2. build:  compiles reart_tpu_torch/csrc/*.cu (sm_90a) into the kernel
              library and native/lap.cpp with the host compiler, and prints
              the build time and ptxas resource lines;
-  3. kernels vs plain: each of the ten kernels against its plain PyTorch
+  3. kernels vs plain: each of the eleven kernels against its plain PyTorch
              version on the card, at the main paths' shapes plus ragged and
              tie cases; indices and coordinates exact, floats within
              FLOAT_TOL; ms of many launches per event pair (for the two
@@ -24,6 +24,9 @@ Phases, each of which raises on failure (exit code != 0):
              kinematic model built from a result.pkl of GT labels and
              perturbed GT poses, a short fit, finalize with inverse
              kinematics) on the card against the CPU within KINEMATIC_TOL;
+             and the correspondence backbone on the card against the CPU
+             (FPS and ball-query indices exact, features within
+             BACKBONE_TOL);
   5. the fit: fit_base at nao scale (bench.py's synthetic sequence and
              config, 60 iterations), with every kernel's launch count;
   6. the run: the relaxation run at full width (T=10, N=4096, 20 parts) on
@@ -33,7 +36,13 @@ Phases, each of which raises on failure (exit code != 0):
              `--model kinematic --downsample 2 --assign_gap 1 --assign_band 0`
              for 200 iterations, a LAP of (9, 2048, 2048) in each, then
              finalize with the retargeting error; launch counts of the fit
-             and of the whole run, seconds per stage.
+             and of the whole run, seconds per stage;
+  8. the corr chain at full width: the scene of phase 6 written to disk,
+             the `corr` subcommand trains the PointNet++ backbone on it
+             (batch 4, 1024 points, CORR_STEPS steps), then the relaxation
+             run of phase 6 with the default `--flow_provider corr` fits
+             from that file's SMNN anchors; launch counts of each, the
+             seconds of setup_flow and of each stage.
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}. Imports neither jax nor reart_tpu.
 """
@@ -93,6 +102,13 @@ KINEMATIC_RUN_TOL = {
 # (--resume --evaluate: no fit): float32 metrics (rtol, with atol 1e-4);
 # the retargeting error goes through 200 AMSGrad steps per novel pose
 KINEMATIC_TOL = {"default": 1e-3, "retarget_err": 2e-2}
+# the backbone's features on the card vs on the CPU, from the same weights
+# and clouds, in both BatchNorm modes: float32 matrix products summed in
+# another order through 25 layers (cuBLAS against the CPU's GEMM), and in
+# batch mode a channel whose batch deviation is far below sqrt(1e-5) has
+# its rounding amplified up to 300-fold by the normalisation; the FPS and
+# ball-query indices are equal
+BACKBONE_TOL = dict(rtol=1e-3, atol=5e-4)
 # the healthy bar of a 3-part toy (RI, flow EPE in cm, tree edit distance)
 HEALTHY = {"seg_ri": (">", 0.9), "flow_epe": ("<", 2.0), "ted": ("==", 0.0)}
 
@@ -122,6 +138,8 @@ KERNELS = {
                        "reart_tpu/ops/pallas_auction.py:105"),
     "auction_solve_resident_hbm": ("reart_tpu_torch/csrc/auction_hbm.cu",
                                    "reart_tpu/ops/pallas_auction.py:334"),
+    "ball_query": ("reart_tpu_torch/csrc/ball_query.cu",
+                   "reart_tpu/ops/pallas_nn.py:194"),
 }
 
 
@@ -237,10 +255,12 @@ def device_phase():
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     if smi.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {smi.stderr.strip()}")
-    log(smi.stdout.strip())  # the card's name and power limit
+    card = smi.stdout.strip()  # the card's name and power limit
+    log(card)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device 0: {torch.cuda.get_device_name(0)}, "
         f"count {torch.cuda.device_count()}")
+    return card
 
 
 def build_phase():
@@ -351,6 +371,10 @@ def kernel_phase(dev):
              ("masked (9, 4096) -> 1024", pcs, half, 1024),
              ("ragged (2, 300) -> 64", randn(2, 300, 3),
               torch.ones((2, 300), dtype=torch.bool, device=dev), 64),
+             # the backbone's first layer on a small cloud: past the last
+             # point every pick is the lowest index
+             ("past the cloud (2, 360) -> 512", randn(2, 360, 3),
+              torch.ones((2, 360), dtype=torch.bool, device=dev), 512),
              # the graph stage's anchors: one cloud, a mask per part
              ("per-part masks (20, 4096) -> 20",
               cano[None].expand(20, 4096, 3).contiguous(), part_masks, 20)]
@@ -427,6 +451,7 @@ def kernel_phase(dev):
     new_kernel_phase(dev, gen, pred_clouds, pcs, stats)
     sweep_kernel_phase(dev, gen, pred_clouds, pcs, stats)
     streamed_kernel_phase(dev, gen, stats)
+    ball_query_phase(dev, gen, stats)
     for name, s in stats.items():
         log(f"timing {name} {s['shape']}: kernel {s['ms']:.4f} ms, plain "
             f"{s['plain_ms']:.4f} ms, bound {s['bound_ms']:.5f} ms by "
@@ -739,6 +764,192 @@ def streamed_kernel_phase(dev, gen, stats):
         f"the bound would read {9 * 2 * 100 * 2048 * 2048 * 4 / 1e9:.1f} GB")
 
 
+def scene():
+    """The articulated table of the full-width runs (T=10, N=4096, six
+    parts) and the normalisation that carries it into the unit ball."""
+    from reart_tpu_torch.data.synth import (
+        make_robot_sample,
+        unit_ball_normalization,
+    )
+
+    sample = make_robot_sample(n_frames=10, n_points=4096, n_parts=6, seed=0)
+    return (sample, *unit_ball_normalization(sample))
+
+
+def gather_points(points, idx):
+    return torch.gather(points, 1, idx[..., None].expand(-1, -1, 3))
+
+
+def ball_query_phase(dev, gen, stats):
+    """The three kernels of a backbone forward (fps, ball_query, nn_topk k=3)
+    against their plain versions, indices exact, on the clouds the two
+    correspondence paths give them: the nine source frames of the scene,
+    normalised as setup_flow normalises them (SA1: 512 FPS centroids of 4096
+    points; SA2: 128 of those 512); a training batch as the `corr` trainer
+    makes it (4 synthetic pairs of 1024 points: 8 clouds); the held-out pair
+    of its evaluation (2 clouds). Then ball_query's edge cases."""
+    from reart_tpu_torch.models.pointnet2 import SA1, SA2
+    from reart_tpu_torch.ops import cuda_fps, cuda_nn
+    from reart_tpu_torch.train.corr import (
+        CorrTrainConfig,
+        draw_pairs,
+        synth_pair,
+    )
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def ones(b, n):
+        return torch.ones((b, n), dtype=torch.bool, device=dev)
+
+    sample, centroid, scale = scene()
+    frames = torch.from_numpy((sample["complete_pc_list"] - centroid)
+                              * np.float32(scale)).to(dev).contiguous()
+    cfg = CorrTrainConfig(batch=4, n_points=1024)
+    src, tgt, _, _ = synth_pair(draw_pairs(gen, 10, 4096, cfg), frames, cfg)
+    clouds = {"flow": frames[:-1].contiguous(),
+              "train": torch.cat([src, tgt]).contiguous(),
+              "held-out": torch.stack([src[0], tgt[0]]).contiguous()}
+    errs = dict(fps=0.0, ball_query=0.0, nn_topk=0.0)
+    timing = {}
+
+    def time_kernel(fn, launches, host_launches):
+        # calls of a few microseconds are paced by the wrapper back to
+        # back, so the kernel's time is a replayed graph's
+        return dict(ms=graph_ms(fn, launches),
+                    ms_host=many_ms(fn, host_launches, 5))
+
+    for group, cloud in clouds.items():
+        timed = group != "held-out"
+        # the two FPS of the SA layers
+        levels = [cloud]
+        for npoint in (SA1[0], SA2[0]):
+            x = levels[-1]
+            mask = ones(*x.shape[:2])
+            label = f"fps {tuple(x.shape[:2])} -> {npoint}"
+            idx = cuda_fps.fps(x, mask, npoint)
+            errs["fps"] = max(errs["fps"], check(
+                label, (idx,), (cuda_fps.fps_plain(x, mask, npoint),),
+                exact={0}))
+            took = ""
+            if timed:  # far longer than its wrapper's host time
+                ms = many_ms(lambda: cuda_fps.fps(x, mask, npoint), 20, 5)
+                took = f"; {ms:.4f} ms a call, back to back"
+            log(f"backbone shapes ({group}): {label}: order exact{took}")
+            levels.append(gather_points(x, idx).contiguous())
+        # the five groupings
+        shapes = [("SA1", r, k, levels[0], levels[1])
+                  for r, k in zip(SA1[1], SA1[2])]
+        shapes += [("SA2", r, k, levels[1], levels[2])
+                   for r, k in zip(SA2[1], SA2[2])]
+        for layer, r, k, xyz, new_xyz in shapes:
+            label = (f"{layer} r={r} K={k} {tuple(xyz.shape)} x "
+                     f"{tuple(new_xyz.shape)}")
+            got = cuda_nn.ball_query(r, k, xyz, new_xyz)
+            torch.cuda.synchronize()
+            ref = cuda_nn.ball_query_plain(r, k, xyz, new_xyz)
+            errs["ball_query"] = max(errs["ball_query"], check(
+                f"ball_query {label}", (got,), (ref,), exact={0}))
+            if not timed:
+                log(f"ball_query ({group}) {label}: indices exact")
+                continue
+            # what this data needs: a centroid looks at points up to its
+            # K-th hit, or at the whole cloud when it has fewer
+            n = xyz.shape[1]
+            d = cuda_nn._sqdist_diff2(new_xyz, xyz)
+            hits = (d < cuda_nn.radius_sq(r)).sum(-1)
+            scanned = torch.where(hits >= k, got[..., k - 1] + 1,
+                                  torch.full_like(hits, n))
+            pairs = int(scanned.sum())
+            del d
+            t = timing[(group, label)] = dict(
+                **time_kernel(lambda: cuda_nn.ball_query(r, k, xyz, new_xyz),
+                              100, 50),
+                plain_ms=median_ms(
+                    lambda: cuda_nn.ball_query_plain(r, k, xyz, new_xyz), 3),
+                **bound(PAIR_FLOPS * pairs, (xyz, new_xyz, got)))
+            log(f"ball_query ({group}) {label}: indices exact; hits per "
+                f"centroid min {int(hits.min())} median "
+                f"{int(hits.median())} max {int(hits.max())}; {pairs} of "
+                f"{hits.numel() * n} pairs looked at; kernel {t['ms']:.4f} ms "
+                f"on the device ({t['ms_host']:.4f} ms a call from the "
+                f"host), plain {t['plain_ms']:.4f} ms, bound "
+                f"{t['bound_ms']:.5f} ms by {t['bound_by']}")
+        # the two 3-NN searches of the feature-propagation layers
+        for q, r in ((levels[1], levels[2]), (levels[0], levels[1])):
+            label = f"nn_topk k=3 {tuple(q.shape[:2])} vs {tuple(r.shape[:2])}"
+            got = cuda_nn.nn_topk(q, r, 3)
+            qf, rf, ref_div, batch = cuda_nn._flatten_query_ref("nn_topk",
+                                                                q, r)
+            ref = tuple(x.reshape(batch + x.shape[-2:])
+                        for x in cuda_nn.nn_topk_plain(qf, rf, 3, ref_div))
+            errs["nn_topk"] = max(errs["nn_topk"], check(label, got, ref,
+                                                         exact={1}))
+            took = ""
+            if timed:
+                t = time_kernel(lambda: cuda_nn.nn_topk(q, r, 3), 20, 20)
+                took = (f"; {t['ms']:.4f} ms on the device, "
+                        f"{t['ms_host']:.4f} ms a call, back to back")
+            log(f"backbone shapes ({group}): {label}: indices exact, "
+                f"distances within {FLOAT_TOL}{took}")
+    err = errs["ball_query"]
+
+    # the edge cases of the CPU test
+    k, radius = 8, 0.25                      # radius^2 = 0.0625 exactly
+    xyz = torch.full((1, 70, 3), 5.0, device=dev)
+    xyz[0, :, 0] += torch.arange(70, device=dev)
+    xyz[0, 10:10 + k] = 1.0                  # exactly k hits of centroid 1
+    xyz[0, 30] = torch.tensor([-3.0, 0.0, 0.0])   # the one hit of centroid 2
+    xyz[0, 40] = torch.tensor([0.25, 0.0, 0.0])   # at the radius: outside
+    xyz[0, 41] = torch.tensor([0.0, 0.2499999, 0.0])      # just inside
+    new_xyz = torch.tensor([[[-9.0, -9.0, -9.0], [1.0, 1.0, 1.0],
+                             [-3.0, 0.1, 0.0], [0.0, 0.0, 0.0]]], device=dev)
+    got = cuda_nn.ball_query(radius, k, xyz, new_xyz)
+    want = torch.stack([torch.zeros(k), torch.arange(10, 10 + k),
+                        torch.full((k,), 30), torch.full((k,), 41)]
+                       ).to(dev, torch.int64)[None]
+    if not torch.equal(got, want):
+        raise AssertionError(f"ball_query edge cases: {got.tolist()}")
+    dup = torch.rand((2, 130, 3), generator=gen, device=dev).repeat(1, 2, 1)
+    many = torch.rand((1100, 64, 3), generator=gen, device=dev)
+    cases = [("edge cases (1, 70) x (1, 4)", radius, k, xyz, new_xyz),
+             ("ragged (3, 601) x (3, 97)", 0.2, 16,
+              torch.rand((3, 601, 3), generator=gen, device=dev),
+              torch.rand((3, 97, 3), generator=gen, device=dev)),
+             ("duplicates (2, 260) x (2, 40)", 0.2, 16, dup,
+              dup[:, 5:45].contiguous()),
+             ("more slots than points (2, 20) x (2, 5), K=32", 10.0, 32,
+              randn(2, 20, 3), randn(2, 5, 3)),
+             # 1100 x 512 / 8 blocks: past the 65,535 of one grid row
+             ("(1100, 64) x (1100, 512)", 0.3, 8, many,
+              torch.rand((1100, 512, 3), generator=gen, device=dev))]
+    for label, r, kk, a, b in cases:
+        err = max(err, check(f"ball_query {label}",
+                             (cuda_nn.ball_query(r, kk, a, b),),
+                             (cuda_nn.ball_query_plain(r, kk, a, b),),
+                             exact={0}))
+        log(f"ball_query {label}: indices exact")
+
+    for name in ("fps", "nn_topk"):
+        stats[name]["max_abs_err"] = max(stats[name]["max_abs_err"],
+                                         errs[name])
+    main = [key for key in timing
+            if key[0] == "flow" and "r=0.2 K=128" in key[1]][0]
+
+    def forward(group, what):
+        return sum(t[what] for key, t in timing.items() if key[0] == group)
+
+    stats["ball_query"] = dict(
+        shape=main[1], max_abs_err=err, **timing[main],
+        ms_forward=forward("flow", "ms"),
+        ms_host_forward=forward("flow", "ms_host"),
+        ms_plain_forward=forward("flow", "plain_ms"),
+        ms_bound_forward=forward("flow", "bound_ms"),
+        ms_forward_train=forward("train", "ms"),
+        ms_plain_forward_train=forward("train", "plain_ms"),
+        ms_bound_forward_train=forward("train", "bound_ms"))
+
+
 def reference_phase(dev):
     """A toy fit on the card against the same fit on the CPU (plain
     versions), from the same parameters and Gumbel draws."""
@@ -784,11 +995,11 @@ def reference_phase(dev):
         f"{hists['cpu']['total_loss'][-1]:.6f}")
 
 
-def robot_args(extra, save_root):
+def robot_args(extra, save_root, flow_provider="gt"):
     from reart_tpu_torch import cli
 
     return cli.build_parser().parse_args(
-        ["robot", "--use_flow_loss", "--flow_provider", "gt",
+        ["robot", "--use_flow_loss", "--flow_provider", flow_provider,
          "--use_assign_loss", "--save_root", save_root, *extra.split()])
 
 
@@ -992,11 +1203,15 @@ def kernel_wrappers():
             cuda_auction.auction_solve_resident, cuda_nn.nn_topk,
             cuda_nn.nn1_coords, cuda_nn.nn_bidir, cuda_auction.row_top2,
             cuda_auction.col_winner_max,
-            cuda_auction.auction_solve_resident_hbm)
+            cuda_auction.auction_solve_resident_hbm, cuda_nn.ball_query)
 
 
 def launch_counts():
     return {w.__name__: w.launches for w in kernel_wrappers()}
+
+
+RUN_PROTOCOL = ("--n_iter 400 --assign_iter 300 --num_parts 20 "
+                "--downsample 4 --seg_refine 2")
 
 
 def run_phase(dev, tmp):
@@ -1004,12 +1219,10 @@ def run_phase(dev, tmp):
     T=10, N=4096, 20 part proposals, GT flow + assign losses, downsample 4,
     a short fit (300 + 100 iterations), then finalize with seg_refine 2."""
     from reart_tpu_torch import checkpoint, cli
-    from reart_tpu_torch.data.synth import make_robot_sample
     from reart_tpu_torch.profiling import phase_report, reset_phases
 
-    sample = make_robot_sample(n_frames=10, n_points=4096, n_parts=6, seed=0)
-    args = robot_args("--n_iter 400 --assign_iter 300 --num_parts 20 "
-                      "--downsample 4 --seg_refine 2", tmp)
+    sample = scene()[0]
+    args = robot_args(RUN_PROTOCOL, tmp)
     save_dir = os.path.join(tmp, "table")
     reset_phases()
     for w in kernel_wrappers():
@@ -1038,8 +1251,10 @@ def run_phase(dev, tmp):
     if model.num_parts != 20:
         raise AssertionError("run: model.ckpt.pkl does not reload")
     for name, count in launches.items():
-        # the streamed auction belongs to the projection run's path
-        if (count <= 0) != (name == "auction_solve_resident_hbm"):
+        # the streamed auction belongs to the projection run's path, the
+        # ball query to the corr chain's
+        if (count <= 0) != (name in ("auction_solve_resident_hbm",
+                                     "ball_query")):
             raise AssertionError(f"kernel {name}: {count} launches in the "
                                  f"relaxation run")
     log(f"run: robot relaxation run at full width, {n_parts} parts, edges "
@@ -1137,6 +1352,366 @@ def projection_run_phase(dev, tmp, sample, base_result_path):
     return launches
 
 
+def backbone_check_phase(dev):
+    """The correspondence backbone on the card against the CPU, from the
+    same weights and clouds (two frames of the scene, 1024 points each, and
+    a cloud of 360 points, fewer than SA1's 512 centroids): the FPS and
+    ball-query indices of both SA levels equal, the features of both
+    BatchNorm modes within BACKBONE_TOL."""
+    from reart_tpu_torch.models.pointnet2 import SA1, SA2, PointNet2Msg2
+    from reart_tpu_torch.ops.sampling import (
+        ball_query,
+        farthest_point_sample,
+        index_points,
+    )
+
+    sample, centroid, scale = scene()
+    norm = (sample["complete_pc_list"] - centroid) * np.float32(scale)
+    cpu_model = PointNet2Msg2(device="cpu",
+                              generator=torch.Generator().manual_seed(0))
+    card_model = PointNet2Msg2(device=dev)
+    card_model.load_state_dict(cpu_model.state_dict())
+    for n in (1024, 360):
+        xyz = torch.from_numpy(np.ascontiguousarray(norm[[0, 5], :n]))
+        levels = {}
+        for where, x in (("cpu", xyz), ("card", xyz.to(dev))):
+            out = []
+            for spec in (SA1, SA2):
+                idx = farthest_point_sample(x, spec[0])
+                new = index_points(x, idx)
+                out.append(idx)
+                out += [ball_query(r, k, x, new)
+                        for r, k in zip(spec[1], spec[2])]
+                x = new
+            levels[where] = [o.cpu() for o in out]
+        for a, b in zip(levels["card"], levels["cpu"]):
+            if not torch.equal(a, b):
+                raise AssertionError(f"backbone N={n}: FPS or ball-query "
+                                     f"indices differ between the card and "
+                                     f"the CPU")
+        worst = 0.0
+        for mode in ("running", "batch"):
+            with torch.no_grad():
+                ref = cpu_model(xyz, bn_mode=mode)
+                got = card_model(xyz.to(dev), bn_mode=mode).cpu()
+            if got.shape != (2, n, 64) or not torch.isfinite(got).all():
+                raise AssertionError(f"backbone N={n} {mode}: features "
+                                     f"{tuple(got.shape)} or not finite")
+            torch.testing.assert_close(got, ref, **BACKBONE_TOL)
+            worst = max(worst, float((got - ref).abs().max()))
+        log(f"reference: backbone (2, {n}, 3) on the card: FPS and "
+            f"ball-query indices of both SA levels equal the CPU's, "
+            f"features of both BatchNorm modes within {BACKBONE_TOL} "
+            f"(largest difference {worst:.2e})")
+
+
+CORR_STEPS = 300
+# the scene's parts are filled boxes, not surfaces: 1024 of a frame's points
+# lie 0.055 apart on average in normalised units, so the resampled recipe's
+# default radii (0.02 / 0.05, sized for densely sampled surfaces) would leave
+# 3 in 100 source points with a positive; these leave 6 in 10
+CORR_RADII = ("--pos_radius", "0.06", "--neg_radius", "0.15")
+
+
+def corr_train_phase(dev, tmp, sample):
+    """The `corr` subcommand at full width: the scene written to disk as a
+    robot sequence with its normalisation file, CORR_STEPS steps of batch 4
+    at 1024 points on the card. The loss must fall and the trained backbone
+    must match points of the real frame pairs."""
+    from reart_tpu_torch import cli
+    from reart_tpu_torch.data.synth import (
+        write_normalize_file,
+        write_robot_sequence,
+    )
+    from reart_tpu_torch.models.pointnet2 import load_corr_model
+
+    seq_dir = os.path.join(tmp, "table_seq")
+    norm_file = os.path.join(tmp, "normalize.pkl")
+    corr_path = os.path.join(tmp, "corr_model.pkl")
+    write_robot_sequence(seq_dir, sample)
+    write_normalize_file(norm_file, seq_dir, sample)
+    for w in kernel_wrappers():
+        w.launches = 0
+    # no device is named: the command line takes the card by itself
+    out = cli.main([
+        "corr", "--data_domain", "robot", "--seq_path", seq_dir,
+        "--normalize_file", norm_file, "--num_points", "4096", "--batch", "4",
+        "--train_points", "1024", "--steps", str(CORR_STEPS),
+        "--dispatch_chunk", "50", "--save_path", corr_path, *CORR_RADII])
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    for key in ("loss", "first_loss", "precision", "match_rate",
+                "real_match_rate"):
+        if not math.isfinite(out[key]):
+            raise AssertionError(f"corr: {key} = {out[key]} is not finite")
+    head, tail = (float(np.mean(out["losses"][:10])),
+                  float(np.mean(out["losses"][-10:])))
+    if not tail < head:
+        raise AssertionError(f"corr: the loss did not fall: mean of the "
+                             f"first ten steps {head}, of the last ten "
+                             f"{tail}")
+    if not (out["match_rate"] > 0.0 and out["real_match_rate"] > 0.0):
+        raise AssertionError(f"corr: no point matched: {out}")
+    model = load_corr_model(corr_path)
+    if next(model.parameters()).device.type != "cuda" or model.out_dim != 64:
+        raise AssertionError("corr: the checkpoint does not reload onto the "
+                             "card")
+    # per step: 2 FPS, 5 ball queries, 2 k-NN searches; the evaluation adds
+    # three forwards (the held-out pair, the two halves of the real pairs)
+    want = {"fps": 2, "ball_query": 5, "nn_topk": 2}
+    for name, per in want.items():
+        if launches[name] != per * (CORR_STEPS + 3):
+            raise AssertionError(f"corr: {launches[name]} launches of "
+                                 f"{name}, expected {per} a forward")
+    log(f"corr: {CORR_STEPS} steps of batch 4 x 1024 points in "
+        f"{out['train_seconds']:.2f} s "
+        f"({CORR_STEPS / out['train_seconds']:.2f} steps/s, "
+        f"{1e3 * out['train_seconds'] / CORR_STEPS:.2f} ms a step, the "
+        f"first step's warm-up included); loss {out['first_loss']:.3f} -> "
+        f"{out['loss']:.3f} (mean of the first ten steps {head:.3f}, of the "
+        f"last ten {tail:.3f}); held-out SMNN precision {out['precision']:.3f}, "
+        f"match rate {out['match_rate']:.3f}; real frame pairs match rate "
+        f"{out['real_match_rate']:.3f}")
+    log(f"corr: kernel launches {launches}")
+    corr_step_profile(dev, model, seq_dir, norm_file)
+    corr_default_radii_phase(tmp, seq_dir, norm_file)
+    return launches, seq_dir, norm_file, corr_path
+
+
+def corr_default_radii_phase(tmp, seq_dir, norm_file, steps=40):
+    """The `corr` subcommand as its defaults stand (radii 0.02 / 0.05), for
+    a few steps: the same step and the same launches as the tuned run above;
+    only the share of source points with a positive differs (see
+    CORR_RADII), so its matching numbers say little about the backbone."""
+    from reart_tpu_torch import cli
+
+    for w in kernel_wrappers():
+        w.launches = 0
+    out = cli.main([
+        "corr", "--data_domain", "robot", "--seq_path", seq_dir,
+        "--normalize_file", norm_file, "--num_points", "4096",
+        "--steps", str(steps), "--dispatch_chunk", str(steps),
+        "--save_path", os.path.join(tmp, "corr_default_radii.pkl")])
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    if not all(math.isfinite(out[k]) for k in ("loss", "first_loss",
+                                               "precision", "match_rate")):
+        raise AssertionError(f"corr, default radii: not finite: {out}")
+    for name, per in {"fps": 2, "ball_query": 5, "nn_topk": 2}.items():
+        if launches[name] != per * (steps + 3):
+            raise AssertionError(f"corr, default radii: {launches[name]} "
+                                 f"launches of {name}, expected {per} a "
+                                 f"forward")
+    log(f"corr, default radii: {steps} steps of batch 4 x 1024 points in "
+        f"{out['train_seconds']:.2f} s "
+        f"({steps / out['train_seconds']:.2f} steps/s); loss "
+        f"{out['first_loss']:.3f} -> {out['loss']:.3f}; held-out SMNN "
+        f"precision {out['precision']:.3f}, match rate "
+        f"{out['match_rate']:.3f}; real frame pairs match rate "
+        f"{out['real_match_rate']:.3f}; kernel launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+
+
+def device_time_by_name(prof):
+    """{kernel or copy name: microseconds on the device} of a profile; the
+    device-side events only (an operator's entry repeats its kernels)."""
+    from torch.autograd import DeviceType
+
+    out = {}
+    for evt in prof.key_averages():
+        # the optimizer's own annotations ("Optimizer.step#Adam.step") are
+        # device-side ranges, not kernels: they repeat their kernels
+        if (evt.device_type != DeviceType.CUDA
+                or evt.key.startswith("Optimizer.")):
+            continue
+        t = getattr(evt, "self_device_time_total", None)
+        if t is None:
+            t = getattr(evt, "self_cuda_time_total", 0.0)
+        if t > 0:
+            out[evt.key] = out.get(evt.key, 0.0) + t
+    return out
+
+
+# kernel-name fragments of a profile's classes, first match wins
+KERNEL_CLASSES = (
+    ("the port's kernels", ("ball_query_kernel", "fps_kernel",
+                            "nn_topk_kernel")),
+    ("matrix products", ("gemm", "cutlass", "cublas", "gemv")),
+    ("reductions", ("reduce_kernel",)),
+    ("gathers and their backward", ("index", "gather", "scatter")),
+    ("elementwise", ("elementwise",)),
+)
+
+
+def log_profile(what, prof, calls, wall_ms):
+    by_name = device_time_by_name(prof)
+    busy_ms = sum(by_name.values()) / 1e3 / calls
+    if busy_ms == 0.0:
+        log(f"{what}: device time not measured (the profiler recorded no "
+            f"device activity); {wall_ms:.2f} ms of wall clock")
+        return
+    classes = {}
+    for name, t in by_name.items():
+        label = next((c for c, frags in KERNEL_CLASSES
+                      if any(f in name.lower() for f in frags)), "other")
+        classes[label] = classes.get(label, 0.0) + t / 1e3 / calls
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    log(f"{what}: {wall_ms:.2f} ms of wall clock, {busy_ms:.2f} ms of "
+        f"device time ({100 * max(0.0, 1 - busy_ms / wall_ms):.0f}% idle) "
+        f"in {len(by_name)} kernel names: "
+        + ", ".join(f"{c} {t:.3f} ms" for c, t in
+                    sorted(classes.items(), key=lambda kv: -kv[1]))
+        + "; largest: "
+        + "; ".join(f"{name[:70]} {t / 1e3 / calls:.2f} ms"
+                    for name, t in top))
+
+
+def corr_step_profile(dev, model, seq_dir, norm_file):
+    """Where a training step's and a feature extraction's time goes: 20
+    steps on the host clock, then 5 steps and one extraction of nine
+    4096-point frames under torch.profiler (kernel time by name)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from reart_tpu_torch import cli
+    from reart_tpu_torch.train import corr as tc
+
+    args = cli.build_parser().parse_args(
+        ["corr", "--seq_path", seq_dir, "--normalize_file", norm_file])
+    frames = torch.as_tensor(cli._corr_training_frames(args)[0], device=dev)
+    cfg = tc.CorrTrainConfig(batch=4, n_points=1024,
+                             pos_radius=float(CORR_RADII[1]),
+                             neg_radius=float(CORR_RADII[3]))
+    opt = torch.optim.Adam(model.parameters(), lr=cfg.lr)
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def step():
+        src, tgt, gt_pos, scale = tc.synth_pair(
+            tc.draw_pairs(gen, frames.shape[0], frames.shape[1], cfg),
+            frames, cfg)
+        return tc._train_step(model, opt, cfg, src, tgt, gt_pos, scale)
+
+    def timed(fn, calls):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / calls
+
+    def extract():
+        with torch.no_grad():
+            return model(frames[:-1])
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    step_ms = timed(step, 20)
+    with profile(activities=acts) as prof:
+        for _ in range(5):
+            step()
+        torch.cuda.synchronize()
+    log_profile("corr: a training step (batch 4 x 1024 points)", prof, 5,
+                step_ms)
+    extract_ms = timed(extract, 5)
+    with profile(activities=acts) as prof:
+        extract()
+        torch.cuda.synchronize()
+    log_profile("corr: one feature extraction of (9, 4096, 3)", prof, 1,
+                extract_ms)
+
+
+def corr_flow_run_phase(dev, tmp, sample, seq_dir, norm_file, corr_path,
+                        stats):
+    """The relaxation run of phase 6 with the default --flow_provider corr:
+    the flow anchors are the SMNN matches of the backbone that the `corr`
+    subcommand has just trained. Afterwards blend3 is held to its plain
+    version on the anchors this run's setup_flow made (each frame pair's
+    SMNN matches, padded with FAR to the largest count)."""
+    from reart_tpu_torch import cli
+    from reart_tpu_torch.ops import cuda_nn
+    from reart_tpu_torch.profiling import phase_report, reset_phases
+    from reart_tpu_torch.train.engine import FAR
+
+    args = cli.build_parser().parse_args(
+        ["robot", "--use_flow_loss", "--use_assign_loss", "--save_root", tmp,
+         "--seq_path", seq_dir, "--normalize_file", norm_file,
+         "--corr_model_path", corr_path, *RUN_PROTOCOL.split()])
+    if args.flow_provider != "corr":
+        raise AssertionError("--flow_provider does not default to corr")
+    save_dir = os.path.join(tmp, "table_corr_flow")
+    reset_phases()
+    for w in kernel_wrappers():
+        w.launches = 0
+    # setup_flow is timed, and its anchors and launches read, where
+    # run_sample calls it
+    seen = {}
+    setup_flow = cli.setup_flow
+
+    def timed_setup_flow(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ctx = setup_flow(*a, **kw)
+        torch.cuda.synchronize()
+        seen.update(seconds=time.perf_counter() - t0, ctx=ctx,
+                    launches=launch_counts())
+        return ctx
+
+    cli.setup_flow = timed_setup_flow
+    try:
+        # no device is named: the entry points take the card by themselves
+        results = cli.run_sample(args, "robot", sample, save_dir)
+    finally:
+        cli.setup_flow = setup_flow
+    torch.cuda.synchronize()
+    launches = launch_counts()
+
+    for k, v in results.items():
+        if not math.isfinite(v):
+            raise AssertionError(f"corr-flow run: {k} = {v} is not finite")
+    if read_result_txt(os.path.join(save_dir, "result.txt")).keys() \
+            != results.keys() or "flow_epe" not in results:
+        raise AssertionError("corr-flow run: result.txt does not list the "
+                             "results")
+    anchors = (seen["ctx"].pc_ref[..., 0] < FAR / 2).sum(1).tolist()
+    if seen["ctx"].pc_ref.device.type != "cuda" or min(anchors) < 3:
+        raise AssertionError(f"corr-flow run: anchors per frame pair "
+                             f"{anchors}")
+    # two extractions of nine frames: 2 x (2 FPS, 5 ball queries, 2 k-NN)
+    for name, count in (("fps", 4), ("ball_query", 10), ("nn_topk", 4)):
+        if seen["launches"][name] != count:
+            raise AssertionError(f"setup_flow: {seen['launches'][name]} "
+                                 f"launches of {name}, expected {count}")
+    for name in ("ball_query", "fps", "nn_topk", "blend3",
+                 "nn1_bidir_coords", "auction_solve_resident"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched by the "
+                                 f"corr-flow run")
+    log(f"corr-flow run: setup_flow {seen['seconds']:.3f} s, anchors per "
+        f"frame pair {anchors} of 4096 points; "
+        + ", ".join(f"{k} {v:.3f}" for k, v in results.items()))
+    log("corr-flow run: seconds per stage "
+        + ", ".join(f"{k} {v:.3f}" for k, v in phase_report().items()))
+    log(f"corr-flow run: kernel launches of setup_flow {seen['launches']}")
+    log(f"corr-flow run: kernel launches {launches}")
+
+    # the flow loss's call: the source frames against the run's own anchors
+    ctx = seen["ctx"]
+    query = torch.from_numpy(np.ascontiguousarray(
+        sample["complete_pc_list"][:-1], np.float32)).to(dev)
+    got = cuda_nn.blend3(query, ctx.pc_ref, ctx.flow_ref)
+    ref = cuda_nn.blend3_plain(query, ctx.pc_ref, ctx.flow_ref)
+    label = (f"blend3 {tuple(query.shape)} vs the run's anchors "
+             f"{tuple(ctx.pc_ref.shape)}")
+    err = check(label, got, ref, exact=set())
+    if not torch.equal((got[1] <= got[2]) | (got[1] <= 0.05),
+                       (ref[1] <= ref[2]) | (ref[1] <= 0.05)):
+        raise AssertionError(f"{label}: validity mask differs")
+    stats["blend3"]["max_abs_err"] = max(stats["blend3"]["max_abs_err"], err)
+    ms = many_ms(lambda: cuda_nn.blend3(query, ctx.pc_ref, ctx.flow_ref))
+    log(f"{label}: mask exact, floats within {FLOAT_TOL}; {ms:.4f} ms a "
+        f"call, back to back")
+    return launches
+
+
 def fit_phase(dev):
     """fit_base at nao scale: T=10, N=4096, P=20, flow + assign losses,
     assign_gap 5, downsample 4 (LAP 9 x 1024^2), 30 + 30 iterations."""
@@ -1212,7 +1787,7 @@ def main():
 
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
-    device_phase()
+    card = device_phase()
     build_phase()
     stats = kernel_phase(dev)
     reference_phase(dev)
@@ -1220,21 +1795,32 @@ def main():
         toy_robot_phase(dev, tmp)
         finalize_phase(dev, tmp)
         kinematic_check_phase(dev, tmp)
+        backbone_check_phase(dev)
         fit_launches = fit_phase(dev)
         run_launches, sample, result_path = run_phase(dev, tmp)
         projection_launches = projection_run_phase(dev, tmp, sample,
                                                    result_path)
+        corr_launches, seq_dir, norm_file, corr_path = corr_train_phase(
+            dev, tmp, sample)
+        corr_flow_launches = corr_flow_run_phase(dev, tmp, sample, seq_dir,
+                                                 norm_file, corr_path, stats)
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
+    log(card)  # once more, where the end of a long log still shows it
     kernels = []
     for name, (src, rep) in KERNELS.items():
         st = stats[name]
-        # launches: over the two full-width main paths, each driven from
-        # counts of 0 (the relaxation run, then the projection run)
+        # launches: over the four full-width main paths, each driven from
+        # counts of 0 (the relaxation run, the projection run, the corr
+        # training run, the relaxation run from corr flow)
+        paths = (run_launches, projection_launches, corr_launches,
+                 corr_flow_launches)
         entry = {"name": name, "route": "cuda", "source": src,
                  "replaces": rep,
-                 "launches": run_launches[name] + projection_launches[name],
+                 "launches": sum(p[name] for p in paths),
                  "launches_run": run_launches[name],
                  "launches_projection": projection_launches[name],
+                 "launches_corr_train": corr_launches[name],
+                 "launches_corr_flow_run": corr_flow_launches[name],
                  "launches_fit": fit_launches[name],
                  "max_abs_err": st["max_abs_err"], "ms": st["ms"],
                  "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],

@@ -1,8 +1,14 @@
-"""Command line of the port: `python -m reart_tpu_torch robot [flags]`
-(reart_tpu/cli.py).
+"""Command line of the port: `python -m reart_tpu_torch robot [flags]` and
+`python -m reart_tpu_torch corr [flags]` (reart_tpu/cli.py).
+
+`corr` trains the correspondence backbone (PointNet++ MSG) on synthetic
+rigid-part deformations of a robot sequence's own frames and saves a
+checkpoint for `--corr_model_path`.
 
 The robot domain's two stages, end to end. `--model base` (relaxation):
-load the sequence, build the flow anchors from the GT clouds, fit the base
+load the sequence, build the flow anchors (`--flow_provider corr`, the
+default: SMNN matches of the backbone's features on clouds normalised by
+`--normalize_file`; `gt`: from the GT clouds), fit the base
 model, then `finalize`: the segmentation E-step, the graph stage (denoise,
 merge, MST, relabel), the metrics, the tree edit distance against the GT
 graph, the selection energy and the result files (result.txt, result.pkl,
@@ -16,9 +22,9 @@ the fit. Flags and defaults are the JAX package's for the robot domain.
 Everything runs on the CUDA device unless `--device cpu` asks for the plain
 PyTorch versions. Tensors stay on that device; the combinatorial graph
 logic is numpy on the host. Not here yet, each raising NotImplementedError:
-`--flow_provider corr`, `--tree_search` other than 0 or 1, torch-format
-(zip) checkpoints, and a LAP past 1024^2 with `--assign_band` other than 0
-on a CUDA device. The gif/html artifacts and the mid-fit snapshot metrics
+`corr --data_domain sapien|real`, `--tree_search` other than 0 or 1,
+torch-format (zip) checkpoints of the fit, and a LAP past 1024^2 with
+`--assign_band` other than 0 on a CUDA device. The gif/html artifacts and the mid-fit snapshot metrics
 are not written.
 """
 
@@ -42,7 +48,76 @@ def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description="reart_tpu_torch command line")
     sub = parser.add_subparsers(dest="domain", required=True)
     _robot_args(sub.add_parser("robot"))
+    _corr_args(sub.add_parser(
+        "corr", help="train the correspondence backbone on a sequence's "
+                     "own frames"))
     return parser
+
+
+def _corr_args(p: argparse.ArgumentParser):
+    """`corr`: train PointNet2Msg2 features on synthetic rigid-part
+    deformations of a sequence's own frames (train/corr.py), producing a
+    checkpoint for --flow_provider corr / --corr_model_path."""
+    p.add_argument("--device", default=None, type=str,
+                   help="torch device; the CUDA device when not given, "
+                        "'cpu' runs the plain PyTorch versions")
+    p.add_argument("--manual_seed", default=2, type=int)
+    p.add_argument("--data_domain", default="robot",
+                   choices=["robot", "real", "sapien"],
+                   help="which dataset loader and normalisation to use "
+                        "(only robot is ported)")
+    p.add_argument("--seq_path", default=["data/robot/nao"], type=str,
+                   nargs="+", help="one or more sequences (category-level "
+                                   "training pools their frames)")
+    p.add_argument("--num_points", default=4096, type=int)
+    p.add_argument("--cano_idx", default=0, type=int)
+    p.add_argument("--normalize_file",
+                   default="data/category_normalize_scale.pkl", type=str)
+    p.add_argument("--save_path", default="corr_model.pkl", type=str)
+    p.add_argument("--save_torch", default=None, type=str,
+                   help="also export the torch-format checkpoint (the "
+                        "released model's state_dict keys)")
+    p.add_argument("--steps", default=2000, type=int)
+    p.add_argument("--batch", default=4, type=int)
+    p.add_argument("--train_points", default=1024, type=int)
+    p.add_argument("--lr", default=1e-3, type=float)
+    p.add_argument("--temperature", default=0.07, type=float)
+    p.add_argument("--max_angle", default=0.6, type=float)
+    p.add_argument("--k_parts", default=8, type=int)
+    p.add_argument("--dispatch_chunk", default=50, type=int,
+                   help="steps between progress lines (and, times 10, "
+                        "between checkpoint rewrites)")
+    p.add_argument("--resample", default=1, type=int, choices=[0, 1],
+                   help="train on independently subsampled src/tgt clouds "
+                        "with radius-gated NN positives; 0 restores the "
+                        "identity-correspondence recipe")
+    p.add_argument("--pos_radius", default=0.02, type=float,
+                   help="resampled recipe: max distance (normalised units) "
+                        "from a point's true transformed position to its "
+                        "nearest tgt point for the pair to be a positive")
+    p.add_argument("--neg_radius", default=0.05, type=float,
+                   help="resampled recipe: tgt points inside this radius of "
+                        "the true position are left out of the negatives")
+    p.add_argument("--bf16", action="store_true",
+                   help="backbone matrix products in bfloat16 (autocast; "
+                        "float32 weights, optimizer and BatchNorm moments)")
+    p.add_argument("--train_checkpoint", default=None, type=str,
+                   help="mid-run checkpoint file: training resumes from it "
+                        "if it exists and rewrites it as it goes")
+    p.add_argument("--self_finetune_steps", default=0, type=int,
+                   help="after training, fine-tune on the sequence's own "
+                        "consecutive frame pairs with mined SMNN "
+                        "pseudo-labels; 0 disables")
+    p.add_argument("--self_finetune_th", default=0.9, type=float,
+                   help="SMNN ratio threshold for pseudo-label mining")
+    p.add_argument("--self_finetune_rounds", default=3, type=int,
+                   help="re-mine pseudo-labels this many times")
+    p.add_argument("--self_finetune_real_frac", default=0.5, type=float,
+                   help="share of a fine-tune batch drawn from real pairs")
+    p.add_argument("--self_finetune_refine_k", default=0, type=int,
+                   help="local-rigid-refine each mining round's targets "
+                        "over this many matched neighbours; 0 keeps the "
+                        "raw discrete targets")
 
 
 def _robot_args(p: argparse.ArgumentParser):
@@ -101,6 +176,26 @@ def _robot_args(p: argparse.ArgumentParser):
                         "at the end of the base stage (0 = off)")
     p.add_argument("--silence", action="store_true",
                    help="suppress per-phase prints")
+    p.add_argument("--normalize_file",
+                   default="data/category_normalize_scale.pkl", type=str,
+                   help="pickle {sequence name: {centroid, scale}}: the "
+                        "cloud normalisation of the corr model")
+    p.add_argument("--match_th", default=0.9, type=float,
+                   help="SMNN ratio-test threshold of the corr-model "
+                        "matching")
+    p.add_argument("--match_disp_gate", default=0.0, type=float,
+                   help="if > 0, drop matches whose displacement exceeds "
+                        "median + this * MAD per frame pair")
+    p.add_argument("--match_refine_k", default=0, type=int,
+                   help="if > 0, replace each match's discrete target with "
+                        "the prediction of a trimmed local rigid fit over "
+                        "its k nearest matched anchors")
+    p.add_argument("--match_chain_r", default=0.0, type=float,
+                   help="if > 0, cycle-consistent chaining over frame "
+                        "triples with this closure radius (normalised "
+                        "units)")
+    p.add_argument("--corr_model_path",
+                   default="pretrained/corr_model.pth.tar", type=str)
     p.add_argument("--flow_provider", default="corr", choices=["corr", "gt"],
                    help="flow supervision source: the frozen corr model or "
                         "GT correspondences (robot datasets carry per-point "
@@ -156,22 +251,172 @@ def dataset_sample(dataset) -> dict:
                 novel_pose_list=dataset.novel_pose_list)
 
 
+def corr_normalization(args, domain: str, seq_path: str | None = None):
+    """(centroid, scale) of the clouds the correspondence extractor sees:
+    one convention for training (run_train_corr) and inference
+    (setup_flow). robot: the entry of --normalize_file under the
+    sequence's directory name."""
+    if domain != "robot":
+        raise NotImplementedError(
+            f"domain {domain!r}: the sapien and real runs are slice 4")
+    from reart_tpu_torch.data.common import load_normalize_dict
+
+    cat = (seq_path or args.seq_path).rstrip("/").split("/")[-1]
+    info = load_normalize_dict(args.normalize_file)[cat]
+    return info["centroid"], float(info["scale"])
+
+
 def setup_flow(args, sample, device=None):
     """The FlowContext of the fit, or None without --use_flow_loss."""
     if not args.use_flow_loss:
         return None
-    if args.flow_provider != "gt":
-        raise NotImplementedError(
-            "--flow_provider corr (the PointNet++ correspondence model and "
-            "its matching) is ported in slice 3; use --flow_provider gt")
-    from reart_tpu_torch.train import FlowContext
+    dev = resolve_device(device)
+    if args.flow_provider == "gt":
+        from reart_tpu_torch.train import FlowContext
 
-    # GT-correspondence flow anchors (per-point GT poses in the dataset)
-    gt = sample["complete_gt_pc_list"]
-    return FlowContext.from_lists(
-        [gt[i] for i in range(gt.shape[0] - 1)],
-        [gt[i + 1] - gt[i] for i in range(gt.shape[0] - 1)],
-        device=resolve_device(device))
+        # GT-correspondence flow anchors (per-point GT poses in the dataset)
+        gt = sample["complete_gt_pc_list"]
+        return FlowContext.from_lists(
+            [gt[i] for i in range(gt.shape[0] - 1)],
+            [gt[i + 1] - gt[i] for i in range(gt.shape[0] - 1)], device=dev)
+
+    # the frozen corr model and SMNN matching
+    from reart_tpu_torch.flow import build_flow_context
+    from reart_tpu_torch.models.pointnet2 import load_corr_model
+
+    model = load_corr_model(args.corr_model_path, device=dev)
+    centroid, scale = corr_normalization(args, "robot")
+    return build_flow_context(
+        sample["complete_pc_list"], model, centroid=centroid, scale=scale,
+        matching="smnn", th=args.match_th, disp_gate=args.match_disp_gate,
+        rigid_refine_k=args.match_refine_k, chain_r=args.match_chain_r,
+        device=dev)
+
+
+# ---------------------------------------------------------------------------
+# the corr trainer
+# ---------------------------------------------------------------------------
+
+def _corr_training_frames(args):
+    """The normalised training frames of one or more sequences (the corr
+    model is category-level, so `corr` pools the frames of every
+    --seq_path), each sequence normalised as setup_flow will normalise it
+    at fit time. Returns (frames (F, N, 3), frames per sequence)."""
+    from reart_tpu_torch.data.robot import RobotSequence
+    from reart_tpu_torch.flow import normalize_pc_list
+
+    if args.data_domain != "robot":
+        raise NotImplementedError(
+            f"corr --data_domain {args.data_domain}: the sapien and real "
+            f"domains are ported in slice 4")
+    blocks = []
+    for sp in args.seq_path:
+        dataset = RobotSequence(sp, args.num_points, args.cano_idx)
+        complete = np.asarray(dataset[0]["complete_pc_list"], np.float32)
+        centroid, scale = corr_normalization(args, "robot", sp)
+        blocks.append(normalize_pc_list(
+            complete, np.asarray(centroid, np.float32), np.float32(scale)))
+    n_min = min(b.shape[1] for b in blocks)
+    rng = np.random.RandomState(args.manual_seed)
+    blocks = [b if b.shape[1] == n_min
+              else b[:, rng.choice(b.shape[1], n_min, replace=False)]
+              for b in blocks]
+    return np.concatenate(blocks, axis=0), [b.shape[0] for b in blocks]
+
+
+def run_train_corr(args, device=None):
+    """`corr`: train the correspondence backbone on the sequences' own
+    frames (train/corr.py), report its matching on a held-out synthetic
+    pair and on the real consecutive frames, and save a --corr_model_path
+    checkpoint. Returns the numbers it prints."""
+    import time
+
+    from reart_tpu_torch.flow import compute_corr_masks
+    from reart_tpu_torch.models.pointnet2 import (
+        save_corr_model,
+        save_corr_model_torch,
+    )
+    from reart_tpu_torch.train.corr import (
+        CorrTrainConfig,
+        draw_pairs,
+        finetune_real_pairs,
+        match_precision,
+        synth_pair,
+        train_corr,
+    )
+
+    dev = resolve_device(device)
+    frames, block_sizes = _corr_training_frames(args)
+    cfg = CorrTrainConfig(
+        steps=args.steps, batch=args.batch,
+        n_points=min(args.train_points, frames.shape[1]),
+        k_parts=args.k_parts, max_angle=args.max_angle,
+        temperature=args.temperature, lr=args.lr,
+        dispatch_chunk=args.dispatch_chunk,
+        compute_dtype="bfloat16" if args.bf16 else "float32",
+        resample=bool(args.resample), pos_radius=args.pos_radius,
+        neg_radius=args.neg_radius)
+    print(f"training corr backbone: {frames.shape[0]} frames x "
+          f"{frames.shape[1]} pts, {cfg.steps} steps x batch {cfg.batch} "
+          f"@ {cfg.n_points} pts", flush=True)
+    t0 = time.perf_counter()
+    model, losses = train_corr(
+        args.manual_seed, frames, cfg, device=dev,
+        checkpoint_path=args.train_checkpoint,
+        log_fn=lambda s, l: print(f"  step {s}/{cfg.steps} loss {l:.3f}",
+                                  flush=True))
+    train_seconds = time.perf_counter() - t0  # log_fn's read-backs wait
+
+    if args.self_finetune_steps > 0:
+        print(f"self-finetune on real consecutive pairs: "
+              f"{args.self_finetune_steps} steps, "
+              f"{args.self_finetune_rounds} mining rounds "
+              f"(th {args.self_finetune_th}, real_frac "
+              f"{args.self_finetune_real_frac})", flush=True)
+        model, ft_losses = finetune_real_pairs(
+            args.manual_seed + 777, model, frames, cfg,
+            steps=args.self_finetune_steps, mine_th=args.self_finetune_th,
+            rounds=args.self_finetune_rounds,
+            real_frac=args.self_finetune_real_frac,
+            refine_k=args.self_finetune_refine_k, device=dev,
+            log_fn=lambda r, m: print(
+                f"  mining round {r}: {m:.3f} of points pseudo-labeled",
+                flush=True))
+        losses = np.concatenate([losses, ft_losses])
+
+    # a held-out synthetic pair through the inference path (running
+    # statistics + SMNN); correct means within pos_radius of gt_pos, which
+    # holds for the identity and the resampled recipe alike
+    frames_t = torch.as_tensor(frames, dtype=torch.float32, device=dev)
+    held_out = draw_pairs(torch.Generator(device=dev).manual_seed(10_007),
+                          frames.shape[0], frames.shape[1], cfg, batch=1)
+    src, tgt, gt_pos, s = synth_pair(held_out, frames_t, cfg)
+    prec, rate = match_precision(model, src[0], tgt[0], gt_pos=gt_pos[0],
+                                 pos_radius=cfg.pos_radius * float(s[0]))
+    print(f"final loss {losses[-1]:.3f}; held-out synthetic pair: "
+          f"SMNN precision {prec:.3f}, match rate {rate:.3f}", flush=True)
+
+    # the matching on the real consecutive frames, which the fit will
+    # consume. Pooled sequences are one array: a pair that straddles a
+    # sequence boundary is two unrelated clouds and is left out.
+    _, valid = compute_corr_masks(frames_t, model)
+    valid = valid.cpu().numpy()
+    boundaries = set(np.cumsum(block_sizes)[:-1] - 1)  # pair t = (t, t+1)
+    keep = [t for t in range(valid.shape[0]) if t not in boundaries]
+    real_rate = float(valid[keep].mean()) if keep else float("nan")
+    print(f"real frame pairs: SMNN match rate {real_rate:.3f} "
+          f"({len(keep)} consecutive pairs)", flush=True)
+
+    save_corr_model(args.save_path, model)
+    if args.save_torch:
+        save_corr_model_torch(args.save_torch, model)
+        print(f"saved torch-format checkpoint {args.save_torch}")
+    print(f"saved {args.save_path} (use: robot --flow_provider corr "
+          f"--corr_model_path {args.save_path})", flush=True)
+    return {"loss": float(losses[-1]), "first_loss": float(losses[0]),
+            "losses": np.asarray(losses), "precision": prec, "match_rate": rate,
+            "real_match_rate": real_rate, "train_seconds": train_seconds,
+            "save_path": args.save_path}
 
 
 # ---------------------------------------------------------------------------
@@ -495,6 +740,8 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     np.random.seed(args.manual_seed)
     device = resolve_device(args.device)
+    if args.domain == "corr":
+        return run_train_corr(args, device)
 
     sample = dataset_sample(load_dataset(args))
     seq_name = args.seq_path.rstrip("/").split("/")[-1]

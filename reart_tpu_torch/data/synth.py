@@ -10,9 +10,17 @@ three-part robot of the command-line tests (a base and two hinged arms).
 A sample also carries what inverse kinematics reads off a RobotSequence,
 in its form: `pose_list` (per frame {part: 4x4 world pose}, frame 0 the
 identity), `cano_idx` and `novel_pose_list` (poses outside the sequence).
+
+`write_robot_sequence` puts a sample on disk as the state / pose pickles a
+`RobotSequence` reads, and `write_normalize_file` the normalisation pickle
+of the correspondence model (`--normalize_file`), so the `corr` subcommand
+can train on a scene made here.
 """
 
 from __future__ import annotations
+
+import os
+import pickle
 
 import numpy as np
 
@@ -179,3 +187,41 @@ def make_toy_robot_sample(n_per: int = 120, n_frames: int = 4,
     return robot_sample(clouds, [part_id] * n_frames, poses,
                         [(1, 0), (2, 0)], cano_idx,
                         [poses_at(1.5), poses_at(n_frames + 0.5)])
+
+
+def write_robot_sequence(seq_dir: str, sample: dict) -> None:
+    """The sample as a robot sequence directory: state_{i}.pkl ({pc,
+    part_id}) for every frame, pose_{i}.pkl for i >= 1 and
+    novel_pose_{j}.pkl. No graph.gpickle: a run from these files takes the
+    GT tree from the sample's `gt_edges`."""
+    os.makedirs(seq_dir, exist_ok=True)
+
+    def dump(name, obj):
+        with open(os.path.join(seq_dir, name), "wb") as f:
+            pickle.dump(obj, f)
+
+    clouds, parts = sample["complete_pc_list"], sample["complete_gt_part_list"]
+    for i in range(clouds.shape[0]):
+        dump(f"state_{i}.pkl", {"pc": clouds[i], "part_id": parts[i]})
+        if i > 0:
+            dump(f"pose_{i}.pkl", sample["pose_list"][i])
+    for j, pose in enumerate(sample["novel_pose_list"]):
+        dump(f"novel_pose_{j}.pkl", pose)
+
+
+def unit_ball_normalization(sample: dict):
+    """(centroid (3,) float32, scale): (cloud - centroid) * scale carries
+    every frame of the sample into the unit ball."""
+    flat = sample["complete_pc_list"].reshape(-1, 3)
+    centroid = flat.mean(0).astype(np.float32)
+    radius = float(np.linalg.norm(flat - centroid, axis=-1).max())
+    return centroid, 1.0 / max(radius, 1e-6)
+
+
+def write_normalize_file(path: str, seq_dir: str, sample: dict) -> None:
+    """The --normalize_file of a scene: {sequence name: {centroid, scale}}
+    with the sample's unit-ball normalisation."""
+    centroid, scale = unit_ball_normalization(sample)
+    with open(path, "wb") as f:
+        pickle.dump({seq_dir.rstrip("/").split("/")[-1]:
+                     {"centroid": centroid, "scale": scale}}, f)

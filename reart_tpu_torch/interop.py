@@ -5,6 +5,9 @@ The JAX relaxation parameters are a pytree
 `w` stored (in, out); the port keeps torch's Linear layout (out, in). The
 projection parameters are a flat dict {axis_list, moment_list, theta_list[,
 distance_list, root_6d, root_t]}, the KinematicModel's parameter names.
+The correspondence backbone's tree is {"sa1": [[layer, ...], ...], "sa2",
+"sa3": [layer, ...], "fp3", "fp2", "fp1", "head": layer} with each layer
+{"w" (in, out), "b", "bn_w", "bn_b", "bn_mean", "bn_var"}.
 """
 
 from __future__ import annotations
@@ -15,6 +18,11 @@ import torch
 from reart_tpu_torch import resolve_device
 from reart_tpu_torch.models.base_model import BaseModel
 from reart_tpu_torch.models.kinematic import KinematicModel, KinematicState
+from reart_tpu_torch.models.pointnet2 import (
+    PointNet2Msg2,
+    params_from_numpy,
+    params_to_numpy,
+)
 
 
 def base_params_from_jax(tree, device=None) -> BaseModel:
@@ -93,3 +101,15 @@ def kinematic_params_to_numpy(model: KinematicModel) -> dict:
     """The JAX parameter dict of a KinematicModel, as numpy."""
     return {k: v.detach().cpu().numpy().copy()
             for k, v in model.state_dict().items()}
+
+
+def pointnet2_params_from_jax(tree, device=None) -> PointNet2Msg2:
+    """A PointNet2Msg2 on `device` (the card when None) holding the values
+    of a JAX backbone parameter tree (numpy leaves, or anything np.asarray
+    accepts)."""
+    return params_from_numpy(tree, device)
+
+
+def pointnet2_params_to_numpy(model: PointNet2Msg2) -> dict:
+    """The JAX parameter tree of a PointNet2Msg2, as numpy."""
+    return params_to_numpy(model)

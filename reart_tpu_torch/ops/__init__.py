@@ -18,17 +18,19 @@ from reart_tpu_torch.ops.distance import (
 from reart_tpu_torch.ops.interpolate import (
     blend_anchor_motion,
     blend_anchor_motion_batched,
+    three_interpolate,
 )
 from reart_tpu_torch.ops.sampling import (
+    ball_query,
     farthest_point_sample,
     index_points,
     masked_farthest_point_sample,
 )
 
 __all__ = [
-    "assignment_cost", "auction_lap", "blend_anchor_motion",
+    "assignment_cost", "auction_lap", "ball_query", "blend_anchor_motion",
     "blend_anchor_motion_batched", "chamfer", "chamfer_loss",
     "farthest_point_sample", "index_points", "knn", "knn_transfer_features",
     "knn_transfer_labels", "masked_farthest_point_sample", "nearest_neighbor",
-    "pairwise_sqdist",
+    "pairwise_sqdist", "three_interpolate",
 ]

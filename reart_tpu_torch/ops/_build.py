@@ -35,6 +35,7 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 
 # C entry points of the library: name -> argument types. Every function
 # returns cudaGetLastError() after its launch (0 = cudaSuccess).
@@ -62,6 +63,8 @@ SIGNATURES = {
     "reart_row_top2": (_P, _P, _I, _I, _I, _P, _P, _P, _P),
     # bid, best_j, B, N, M, col_bid, col_winner, stream
     "reart_col_winner_max": (_P, _P, _I, _I, _I, _P, _P, _P),
+    # xyz, new_xyz, B, N, S, r2, nsample, out, stream
+    "reart_ball_query": (_P, _P, _I, _I, _I, _F, _I, _P, _P),
 }
 
 

@@ -1,5 +1,5 @@
 """Neighbour kernels (csrc/nn1_bidir_coords.cu, blend3.cu, nn_topk.cu,
-nn1_coords.cu, nn_bidir.cu) with their plain PyTorch versions.
+nn1_coords.cu, nn_bidir.cu, ball_query.cu) with their plain PyTorch versions.
 
 Counterpart of reart_tpu/ops/pallas_nn.py:
 
@@ -13,7 +13,10 @@ Counterpart of reart_tpu/ops/pallas_nn.py:
   * `nn1_coords`: single-direction 1-NN with the winner's coords (Pallas
     `nn1_coords_pallas`), behind the single-direction Chamfer;
   * `nn_bidir`: bidirectional 1-NN without coords (Pallas
-    `nn_bidir_pallas`): both directions of the Chamfer metric in one launch.
+    `nn_bidir_pallas`): both directions of the Chamfer metric in one launch;
+  * `ball_query`: the first K in-radius points of every centroid, in point
+    order (Pallas `ball_query_pallas`): the grouping of the PointNet++
+    set-abstraction layers.
 
 The three scans of the second group share csrc/nn_scan.cuh.
 
@@ -367,3 +370,73 @@ def nn_bidir(src: torch.Tensor, tgt: torch.Tensor):
 
 
 nn_bidir.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# ball_query
+# ---------------------------------------------------------------------------
+
+def radius_sq(radius: float) -> float:
+    """radius^2 as the JAX package compares against it: the product in
+    double, rounded once to float32."""
+    return torch.tensor(float(radius) * float(radius),
+                        dtype=torch.float32).item()
+
+
+def ball_query_plain(radius: float, nsample: int, xyz: torch.Tensor,
+                     new_xyz: torch.Tensor) -> torch.Tensor:
+    """xyz (B, N, 3), centroids new_xyz (B, S, 3) -> (B, S, nsample) int64:
+    the indices j with sqdist(new_xyz[b, s], xyz[b, j]) < radius^2 (strict),
+    ascending, the first nsample of them; slots past the last hit hold the
+    first hit, a centroid without a hit holds 0 throughout. The nsample
+    smallest of the key (j for a hit, j + N otherwise) are the hits in point
+    order; the keys are distinct, so their order is unique. Chunked over the
+    batch like nn_topk_plain."""
+    b, n, s = xyz.shape[0], xyz.shape[1], new_xyz.shape[1]
+    r2 = radius_sq(radius)
+    k = min(nsample, n)
+    cols = torch.arange(n, dtype=torch.int32, device=xyz.device)
+    outs = []
+    for b0, b1 in _batch_chunks(b, s, n):
+        hit = _sqdist_diff2(new_xyz[b0:b1], xyz[b0:b1]) < r2     # (b, S, N)
+        key = torch.where(hit, cols, cols + n)
+        sel = torch.topk(key, k, dim=-1, largest=False, sorted=True)[0]
+        idx = torch.where(sel < n, sel, sel - n).to(torch.int64)
+        first = idx[..., :1]
+        idx = torch.where(sel < n, idx, first)
+        if k < nsample:
+            idx = torch.cat([idx, first.expand(-1, -1, nsample - k)], -1)
+        outs.append(idx)
+    return torch.cat(outs)
+
+
+def ball_query(radius: float, nsample: int, xyz: torch.Tensor,
+               new_xyz: torch.Tensor) -> torch.Tensor:
+    """First `nsample` in-radius points of each centroid, in point order;
+    see ball_query_plain. Not differentiable."""
+    name = "ball_query"
+    xyz, new_xyz = xyz.detach(), new_xyz.detach()
+    _check_clouds(name, xyz, new_xyz, max_batch=MAX_BLOCKS)
+    if nsample < 1 or not radius > 0:
+        raise ValueError(f"{name}: needs nsample >= 1 and radius > 0, got "
+                         f"{nsample} and {radius}")
+    if _build.is_cpu(name, xyz):
+        return ball_query_plain(radius, nsample, xyz, new_xyz)
+    xyz, new_xyz = xyz.contiguous(), new_xyz.contiguous()
+    _build.require_cuda(name, xyz, new_xyz, dtype=torch.float32)
+    b, n, s = xyz.shape[0], xyz.shape[1], new_xyz.shape[1]
+    if b * (-(-s // 8)) > MAX_BLOCKS:
+        raise ValueError(f"{name}: batch {b} x {s} centroids is past the "
+                         f"grid limit")
+    out = torch.empty((b, s, nsample), dtype=torch.int64, device=xyz.device)
+    lib = _build.load_library()
+    with torch.cuda.device(xyz.device):
+        err = lib.reart_ball_query(xyz.data_ptr(), new_xyz.data_ptr(), b, n,
+                                   s, radius_sq(radius), nsample,
+                                   out.data_ptr(), _build.stream_of(xyz))
+    _build.check_launch(name, err)
+    ball_query.launches += 1
+    return out
+
+
+ball_query.launches = 0

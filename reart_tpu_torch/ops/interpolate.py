@@ -1,4 +1,5 @@
-"""Anchor-flow blending (reart_tpu/ops/interpolate.py).
+"""Inverse-distance interpolation and anchor-flow blending
+(reart_tpu/ops/interpolate.py).
 
 Weights are inverse euclidean distances floored at 1e-10. The validity mask
 is min_dist <= max squared flow norm OR min_dist <= 0.05: the reference's
@@ -9,8 +10,34 @@ from __future__ import annotations
 
 import torch
 
-from reart_tpu_torch.ops.cuda_nn import blend3
+from reart_tpu_torch.ops.cuda_nn import blend3, nn_topk
 from reart_tpu_torch.ops.distance import knn
+
+
+def three_interpolate(xyz_query: torch.Tensor, xyz_ref: torch.Tensor,
+                      feat_ref: torch.Tensor, eps: float = 1e-8):
+    """Inverse-square-distance 3-NN feature interpolation: xyz_query
+    (..., N, 3), xyz_ref (..., S, 3), feat_ref (..., S, D) -> (..., N, D),
+    weights 1 / (sqdist + eps), normalised. The neighbours come from the
+    k-NN kernel (not differentiable); the squared distances are recomputed
+    from the gathered points, so gradients reach both clouds and the
+    features alike on the CPU and on the card."""
+    k = min(3, xyz_ref.shape[-2])
+    _, idx = nn_topk(xyz_query, xyz_ref, k)                    # (..., N, k)
+    flat = idx.reshape(idx.shape[:-2] + (-1,))
+
+    def gather(ref):                        # (..., S, C) -> (..., N, k, C)
+        c = ref.shape[-1]
+        ref = ref.expand(idx.shape[:-2] + ref.shape[-2:])
+        out = torch.gather(ref, -2, flat[..., None].expand(
+            flat.shape + (c,)))
+        return out.reshape(idx.shape + (c,))
+
+    diff = xyz_query[..., None, :] - gather(xyz_ref)
+    d = torch.sum(diff * diff, dim=-1)
+    w = 1.0 / (d + eps)
+    w = w / torch.sum(w, dim=-1, keepdim=True)
+    return torch.sum(gather(feat_ref) * w[..., None], dim=-2)
 
 
 def blend_anchor_motion(query_loc: torch.Tensor, reference_loc: torch.Tensor,

@@ -1,7 +1,13 @@
-"""Farthest-point sampling and gathering (reart_tpu/ops/sampling.py).
+"""Farthest-point sampling, ball query and gathering
+(reart_tpu/ops/sampling.py).
 
 FPS keeps the reference CUDA kernel's determinism contract: it starts at
 index 0 (or at the first masked index) and breaks ties to the lowest index.
+`ball_query` (the kernel of ops/cuda_nn.py) keeps the first `nsample`
+in-radius indices in point order, padded with the first. The JAX package's
+`index_points_mm` (a gather whose backward is a one-hot matmul, a TPU
+scatter workaround) has no counterpart: `index_points` and autograd's
+gather backward do its work.
 """
 
 from __future__ import annotations
@@ -9,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from reart_tpu_torch.ops.cuda_fps import fps
+from reart_tpu_torch.ops.cuda_nn import ball_query  # noqa: F401  (re-export)
 
 
 def index_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -562,3 +562,123 @@ def test_metrics_on_card_match_cpu(cuda):
                             device="cpu", **kw)
     for k in on_cpu:
         assert on_card[k] == pytest.approx(on_cpu[k], rel=1e-4, abs=1e-5), k
+
+
+# ---------------------------------------------------------------------------
+# ball_query and the correspondence backbone
+# ---------------------------------------------------------------------------
+
+def _ball_same(cuda, radius, k, xyz, new_xyz):
+    got = cuda_nn.ball_query(radius, k, xyz.to(cuda), new_xyz.to(cuda))
+    ref = cuda_nn.ball_query_plain(radius, k, xyz, new_xyz)
+    assert got.dtype == torch.int64 and torch.equal(got.cpu(), ref)
+    return ref
+
+
+@pytest.mark.parametrize("b,n,s,radius,k", [
+    (1, 1, 1, 0.5, 4), (2, 31, 7, 0.3, 8), (3, 601, 97, 0.1, 128),
+    (2, 1024, 512, 0.05, 32), (1, 4097, 9, 0.2, 64), (2, 20, 5, 10.0, 32)])
+def test_ball_query_ragged(cuda, b, n, s, radius, k):
+    rng = np.random.RandomState(n)
+    xyz = torch.from_numpy(rng.rand(b, n, 3).astype(np.float32))
+    new_xyz = torch.from_numpy(rng.rand(b, s, 3).astype(np.float32))
+    _ball_same(cuda, radius, k, xyz, new_xyz)
+
+
+def test_ball_query_edges_and_duplicates(cuda):
+    """An empty ball, exactly k hits, one hit, a point exactly at the
+    radius (outside), and a cloud in which every point appears twice."""
+    k, radius = 8, 0.25
+    xyz = torch.full((1, 70, 3), 5.0)
+    xyz[0, :, 0] += torch.arange(70)
+    xyz[0, 10:10 + k] = 1.0
+    xyz[0, 30] = torch.tensor([-3.0, 0.0, 0.0])
+    xyz[0, 40] = torch.tensor([0.25, 0.0, 0.0])
+    xyz[0, 41] = torch.tensor([0.0, 0.2499999, 0.0])
+    new_xyz = torch.tensor([[[-9.0, -9.0, -9.0], [1.0, 1.0, 1.0],
+                             [-3.0, 0.1, 0.0], [0.0, 0.0, 0.0]]])
+    ref = _ball_same(cuda, radius, k, xyz, new_xyz)
+    assert ref[0, 0].tolist() == [0] * k
+    assert ref[0, 1].tolist() == list(range(10, 10 + k))
+    assert ref[0, 2].tolist() == [30] * k and ref[0, 3].tolist() == [41] * k
+    dup = torch.from_numpy(np.random.RandomState(0).rand(2, 130, 3).astype(
+        np.float32)).repeat(1, 2, 1)
+    _ball_same(cuda, 0.2, 16, dup, dup[:, 5:45].contiguous())
+
+
+def test_ball_query_view_stream_and_large_grid(cuda):
+    """A cloud that is a strided view (the wrapper copies it), a launch on
+    a side stream, and B x S / 8 blocks past the 65,535 of one grid row."""
+    rng = np.random.RandomState(1)
+    wide = torch.from_numpy(rng.rand(2, 300, 4).astype(np.float32))
+    xyz, new_xyz = wide[..., 1:], wide[:, :40, 1:]
+    assert not xyz.is_contiguous()
+    ref = _ball_same(cuda, 0.2, 16, xyz, new_xyz)
+    side = torch.cuda.Stream(device=cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        on_side = xyz.to(cuda, non_blocking=True) * 1.0
+        got = cuda_nn.ball_query(0.2, 16, on_side, new_xyz.to(cuda))
+    side.synchronize()
+    assert torch.equal(got.cpu(), ref)
+    many = torch.from_numpy(rng.rand(1100, 64, 3).astype(np.float32))
+    cents = torch.from_numpy(rng.rand(1100, 512, 3).astype(np.float32))
+    before = cuda_nn.ball_query.launches
+    _ball_same(cuda, 0.3, 8, many, cents)
+    assert cuda_nn.ball_query.launches == before + 1
+    with pytest.raises(ValueError):
+        cuda_nn.ball_query(0.3, 8, many.to(cuda), cents)  # two devices
+    with pytest.raises(ValueError):
+        cuda_nn.ball_query(0.3, 8, many.to(cuda).double(),
+                           cents.to(cuda).double())
+
+
+@pytest.mark.parametrize("n", [1024, 360])
+def test_backbone_on_card_matches_cpu(cuda, n):
+    """The same weights and clouds through the backbone on the card and on
+    the CPU: running mode and batch mode (with its moments) within rtol
+    1e-3, atol 5e-4 (float32 sums in another order through 25 layers; a
+    small batch deviation amplifies rounding). n = 360 is fewer points than
+    SA1's 512 centroids."""
+    from reart_tpu_torch.data.synth import make_robot_sample
+    from reart_tpu_torch.models.pointnet2 import PointNet2Msg2
+
+    pcs = make_robot_sample(n_frames=2, n_points=n, n_parts=4,
+                            seed=1)["complete_pc_list"]
+    xyz = torch.from_numpy(pcs / np.linalg.norm(pcs, axis=-1).max())
+    cpu_model = PointNet2Msg2(device="cpu",
+                              generator=torch.Generator().manual_seed(0))
+    card_model = PointNet2Msg2()  # the card by default
+    assert next(card_model.parameters()).device.type == "cuda"
+    card_model.load_state_dict(cpu_model.state_dict())
+    for mode in ("running", "batch"):
+        s_cpu, s_card = [], []
+        with torch.no_grad():
+            ref = cpu_model(xyz, bn_mode=mode, stats_out=s_cpu)
+            got = card_model(xyz.to(cuda), bn_mode=mode, stats_out=s_card)
+        torch.testing.assert_close(got.cpu(), ref, rtol=1e-3, atol=5e-4)
+        for (m, v), (m_ref, v_ref) in zip(s_card, s_cpu):
+            torch.testing.assert_close(m.cpu(), m_ref, rtol=1e-3, atol=1e-4)
+            torch.testing.assert_close(v.cpu(), v_ref, rtol=1e-3, atol=1e-5)
+
+
+def test_corr_training_steps_on_card(cuda):
+    """Three training steps on the card: finite losses, the kernels
+    launched (5 ball queries, 2 FPS, 2 k-NN searches a step), weights and
+    running statistics moved."""
+    from reart_tpu_torch.data.synth import make_robot_sample
+    from reart_tpu_torch.train.corr import CorrTrainConfig, train_corr
+
+    pcs = make_robot_sample(n_frames=3, n_points=1024, n_parts=4,
+                            seed=1)["complete_pc_list"]
+    frames = pcs / np.linalg.norm(pcs, axis=-1).max()
+    cfg = CorrTrainConfig(steps=3, batch=2, n_points=256, dispatch_chunk=3)
+    counts = {w: w.launches for w in (cuda_nn.ball_query, cuda_fps.fps,
+                                      cuda_nn.nn_topk)}
+    model, losses = train_corr(0, frames, cfg)  # the card by default
+    assert losses.shape == (3,) and np.isfinite(losses).all()
+    assert cuda_nn.ball_query.launches - counts[cuda_nn.ball_query] == 15
+    assert cuda_fps.fps.launches - counts[cuda_fps.fps] == 6
+    assert cuda_nn.nn_topk.launches - counts[cuda_nn.nn_topk] == 6
+    assert float(model.head.running_var.min()) != 1.0
+    assert next(model.parameters()).device.type == "cuda"

@@ -218,9 +218,12 @@ def test_parts_not_ported_yet_say_so(tmp_path):
     args = cli.build_parser().parse_args(base + ["--resume", zipped])
     with pytest.raises(NotImplementedError, match="slice 5"):
         cli.run_sample(args, "robot", sample, str(tmp_path), device="cpu")
-    args = cli.build_parser().parse_args(base + ["--use_flow_loss"])
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        cli.setup_flow(args, sample, "cpu")
+    # the corr trainer's other domains
+    for domain in ("sapien", "real"):
+        args = cli.build_parser().parse_args(
+            ["corr", "--device", "cpu", "--data_domain", domain])
+        with pytest.raises(NotImplementedError, match="slice 4"):
+            cli.run_train_corr(args, "cpu")
     args = cli.build_parser().parse_args(base)
     assert cli.setup_flow(args, sample, "cpu") is None
     with pytest.raises(NotImplementedError):
@@ -453,7 +456,9 @@ def test_command_line_imports_no_jax_and_defaults_to_the_card():
         "import sys, reart_tpu_torch, reart_tpu_torch.cli; "
         "from reart_tpu_torch.__main__ import main; "
         "import reart_tpu_torch.ik, reart_tpu_torch.models.kinematic, "
-        "reart_tpu_torch.graph.kinematics; "
+        "reart_tpu_torch.graph.kinematics, reart_tpu_torch.flow, "
+        "reart_tpu_torch.models.pointnet2, reart_tpu_torch.train.corr, "
+        "reart_tpu_torch.interop; "
         "bad = [m for m in ('jax', 'optax', 'reart_tpu', 'networkx') "
         "if m in sys.modules]; assert not bad, bad; "
         "args = reart_tpu_torch.cli.build_parser().parse_args(['robot']); "

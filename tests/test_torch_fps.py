@@ -83,6 +83,30 @@ def test_fps_ties_go_to_lowest_index():
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
 
 
+@pytest.mark.parametrize("masked", [False, True])
+def test_fps_past_the_cloud_size_repeats_the_lowest_index(masked):
+    """The backbone's first layer always asks for 512 centroids; a cloud of
+    fewer points runs out, every running distance is 0, and the lowest
+    (masked) index wins each further pick, in the fori_loop, the Pallas
+    kernel and the port alike."""
+    xyz = _cloud(7)[:, :40]
+    mask = np.ones((B, 40), bool)
+    if masked:
+        mask[:, :3] = False
+        mask[:, 20:] = False
+    got = masked_farthest_point_sample(torch.from_numpy(xyz),
+                                       torch.from_numpy(mask), 64)
+    start = jnp.argmax(jnp.asarray(mask), axis=-1).astype(jnp.int32)
+    ref = np.asarray(_fps_loop(jnp.asarray(xyz), jnp.asarray(mask), start, 64))
+    np.testing.assert_array_equal(got.numpy(), ref)
+    with pltpu.force_tpu_interpret_mode():
+        ker = np.asarray(fps_pallas(jnp.asarray(xyz), jnp.asarray(mask), 64))
+    np.testing.assert_array_equal(got.numpy(), ker)
+    n_in = int(mask[0].sum())
+    assert len(set(got[0, :n_in].tolist())) == n_in  # every point once
+    assert (got[:, n_in:] == (3 if masked else 0)).all()
+
+
 def test_index_points_matches_jax():
     xyz = _cloud(5)
     idx = np.random.RandomState(5).randint(0, N, (B, 7, 3))
