@@ -8,7 +8,7 @@ Phases, each of which raises on failure (exit code != 0):
   2. build:  compiles reart_tpu_torch/csrc/*.cu (sm_90a) into the kernel
              library and native/lap.cpp with the host compiler, and prints
              the build time and ptxas resource lines;
-  3. kernels vs plain: each of the eleven kernels against its plain PyTorch
+  3. kernels vs plain: each of the twelve kernels against its plain PyTorch
              version on the card, at the main paths' shapes plus ragged and
              tie cases; indices and coordinates exact, floats within
              FLOAT_TOL; ms of many launches per event pair (for the two
@@ -42,7 +42,25 @@ Phases, each of which raises on failure (exit code != 0):
              (batch 4, 1024 points, CORR_STEPS steps), then the relaxation
              run of phase 6 with the default `--flow_provider corr` fits
              from that file's SMNN anchors; launch counts of each, the
-             seconds of setup_flow and of each stage.
+             seconds of setup_flow and of each stage;
+  9. a toy sapien scene (LAPs of 300^2) through both stages on the card
+             against the CPU: the relaxation healthy, its tree's joints
+             equal and its numbers within SAPIEN_RUN_TOL; the projection's
+             tree, labels and joint types equal, its numbers within
+             SAPIEN_PROJ_TOL;
+ 10. the sapien chain at full width: make_sapien_scene (8 views x 4096
+             points, 6 parts), the relaxation run from its --flow_file at
+             --downsample 1 ((7, 4096, 4096) LAPs through the banded kernel,
+             the band guard's probes and one re-probe printed), then the
+             projection run; full_flow_epe, per- and multi-scan RI, seconds
+             per stage and launch counts of each;
+ 11. the real chain at full width: write_real_scene (6 OBJ frames), `corr
+             --data_domain real`, the relaxation run from its SMNN anchors
+             (4096 points, --downsample 4) and the projection run with
+             prismatic joints allowed; seconds and launch counts of each.
+Phase 3 holds the banded kernel to its plain version at the sapien LAP
+((7, 4096, 4096), w=1024) and at (9, 2048, 2048), w=512, cold and warm,
+carry off and on.
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}. Imports neither jax nor reart_tpu.
 """
@@ -140,6 +158,8 @@ KERNELS = {
                                    "reart_tpu/ops/pallas_auction.py:334"),
     "ball_query": ("reart_tpu_torch/csrc/ball_query.cu",
                    "reart_tpu/ops/pallas_nn.py:194"),
+    "auction_solve_banded": ("reart_tpu_torch/csrc/auction_banded.cu",
+                             "reart_tpu/ops/pallas_auction.py:541"),
 }
 
 
@@ -452,6 +472,8 @@ def kernel_phase(dev):
     sweep_kernel_phase(dev, gen, pred_clouds, pcs, stats)
     streamed_kernel_phase(dev, gen, stats)
     ball_query_phase(dev, gen, stats)
+    with tempfile.TemporaryDirectory() as tmp:
+        banded_kernel_phase(dev, tmp, stats)
     for name, s in stats.items():
         log(f"timing {name} {s['shape']}: kernel {s['ms']:.4f} ms, plain "
             f"{s['plain_ms']:.4f} ms, bound {s['bound_ms']:.5f} ms by "
@@ -1203,7 +1225,8 @@ def kernel_wrappers():
             cuda_auction.auction_solve_resident, cuda_nn.nn_topk,
             cuda_nn.nn1_coords, cuda_nn.nn_bidir, cuda_auction.row_top2,
             cuda_auction.col_winner_max,
-            cuda_auction.auction_solve_resident_hbm, cuda_nn.ball_query)
+            cuda_auction.auction_solve_resident_hbm, cuda_nn.ball_query,
+            cuda_auction.auction_solve_banded)
 
 
 def launch_counts():
@@ -1252,9 +1275,9 @@ def run_phase(dev, tmp):
         raise AssertionError("run: model.ckpt.pkl does not reload")
     for name, count in launches.items():
         # the streamed auction belongs to the projection run's path, the
-        # ball query to the corr chain's
+        # ball query to the corr chain's, the banded auction to sapien's
         if (count <= 0) != (name in ("auction_solve_resident_hbm",
-                                     "ball_query")):
+                                     "ball_query", "auction_solve_banded")):
             raise AssertionError(f"kernel {name}: {count} launches in the "
                                  f"relaxation run")
     log(f"run: robot relaxation run at full width, {n_parts} parts, edges "
@@ -1406,6 +1429,9 @@ def backbone_check_phase(dev):
 
 
 CORR_STEPS = 300
+# the real chain's backbone training: the scene's surfaces are sampled,
+# where the command's default radii find positives
+REAL_CORR_STEPS = 100
 # the scene's parts are filled boxes, not surfaces: 1024 of a frame's points
 # lie 0.055 apart on average in normalised units, so the resampled recipe's
 # default radii (0.02 / 0.05, sized for densely sampled surfaces) would leave
@@ -1778,6 +1804,401 @@ def fit_phase(dev):
     return launches
 
 
+def banded_kernel_phase(dev, tmp, stats):
+    """auction_solve_banded against its plain version on the card, row_to_col,
+    prices and per-phase stats exact: at the sapien relaxation's LAP, (7,
+    4096, 4096) with w=1024, tile 256 (the full-width scene's GT clouds of
+    views 1-7 a little off against the observed views, Hilbert-sorted), and
+    at the robot's downsample-2 LAP, (9, 2048, 2048) with w=512 (Morton);
+    cold and warm (the cold solve's prices, the source moved a little),
+    carry off and on."""
+    from reart_tpu_torch.data.sapien import SapienDataset
+    from reart_tpu_torch.data.synth import make_robot_sample, make_sapien_scene
+    from reart_tpu_torch.ops import cuda_auction
+    from reart_tpu_torch.ops.assignment import _curve_sort, band_tile
+
+    solve = cuda_auction.auction_solve_banded
+    plain = cuda_auction.auction_solve_banded_plain
+    eps = (5e-3, 1e-4)  # the fit's schedule: eps_min 1e-4, 2 scales, x50
+    rng = np.random.RandomState(0)
+
+    def problem(src, tgt, w):
+        src = src + 0.02 * rng.randn(*src.shape).astype(np.float32)
+        s, t, _, _ = _curve_sort(torch.from_numpy(src).to(dev),
+                                 torch.from_numpy(tgt).to(dev), w, None)
+        moved = s + 0.002 * torch.from_numpy(
+            rng.randn(*src.shape).astype(np.float32)).to(dev)
+        return s.contiguous(), moved.contiguous(), t.contiguous()
+
+    root = make_sapien_scene(os.path.join(tmp, "sapien_kernel"), n_views=8,
+                             n_points=4096, n_parts=6)
+    sap = SapienDataset(root)[0]
+    robot = make_robot_sample(n_frames=10, n_points=2048, n_parts=6, seed=1)
+    shapes = {"(7, 4096, 4096) w=1024": (
+        problem(sap["gt_pc_list"], sap["pc_list"], 1024), 1024),
+        "(9, 2048, 2048) w=512": (
+        problem(robot["gt_pc_list"], robot["pc_list"], 512), 512)}
+    err = 0.0
+    counts = {}
+    for shape, ((src, moved, tgt), w) in shapes.items():
+        b, n = src.shape[:2]
+        zero = torch.zeros((b, n), device=dev)
+        for carry in (False, True):
+            cold = solve(src, tgt, zero, eps, 100, w, carry=carry,
+                         return_stats=True)
+            cases = (("cold", src, zero, cold),
+                     ("warm", moved, cold[1], None))
+            for label, s, p, got in cases:
+                if got is None:
+                    got = solve(s, tgt, p, eps, 100, w, carry=carry,
+                                return_stats=True)
+                torch.cuda.synchronize()
+                ref = plain(s, tgt, p, eps, 100, w, carry=carry,
+                            return_stats=True)
+                name = f"auction_banded {shape} {label} carry={carry}"
+                err = max(err, check(name, got, ref, exact={0, 1, 2}))
+                counts[name] = got[2]
+                st = got[2]
+                log(f"{name}: row_to_col, prices and stats exact; sweeps "
+                    f"per phase {st[..., 0].T.tolist()}, bidding rows "
+                    f"{st[..., 1].sum(0).tolist()}, bidding tiles "
+                    f"{st[..., 2].sum(0).tolist()} (of {n // band_tile(n)} "
+                    f"a sweep an element), duplicate columns "
+                    f"{int(n * b - sum(len(torch.unique(r)) for r in got[0]))}")
+
+    # timed at the sapien shape, warm, carry off (the fit's call)
+    (src, moved, tgt), w = shapes["(7, 4096, 4096) w=1024"]
+    b, n = src.shape[:2]
+    zero = torch.zeros((b, n), device=dev)
+    warm_price = solve(src, tgt, zero, eps, 100, w)[1]
+    st = counts["auction_banded (7, 4096, 4096) w=1024 warm carry=False"]
+    tile = band_tile(n)
+    # the least work this run's data needs: each phase builds the band's
+    # distances once (3 subtractions, 3 products, 2 additions, a square
+    # root), and each row that bids passes its window once per sweep (a
+    # subtraction and two comparisons); the TPU kernel passes whole tiles
+    # (tile_ops, logged beside it). The bytes: the points and prices in,
+    # the map and prices out
+    band_ops = len(eps) * b * n * w * (PAIR_FLOPS + 1)
+    pass_ops = int(st[..., 1].sum()) * w * 3
+    tile_ops = int(st[..., 2].sum()) * tile * w * 3
+    out = solve(moved, tgt, warm_price, eps, 100, w)
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (moved, tgt, warm_price, *out))
+    stats["auction_solve_banded"] = dict(
+        shape="(7, 4096, 4096) w=1024, warm", max_abs_err=err,
+        ms=many_ms(lambda: solve(moved, tgt, warm_price, eps, 100, w), 5, 5),
+        ms_cold=many_ms(lambda: solve(src, tgt, zero, eps, 100, w), 5, 5),
+        plain_ms=median_ms(
+            lambda: plain(moved, tgt, warm_price, eps, 100, w), 2),
+        band_ops=band_ops, pass_ops=pass_ops, tile_ops=tile_ops,
+        **bound_of(band_ops + pass_ops, nbytes))
+    s2 = stats["auction_solve_banded"]
+    log(f"auction_banded (7, 4096, 4096) w=1024: warm {s2['ms']:.4f} ms, cold "
+        f"{s2['ms_cold']:.4f} ms, plain {s2['plain_ms']:.1f} ms; bound "
+        f"{s2['bound_ms']:.5f} ms by {s2['bound_by']} (band distances "
+        f"{band_ops / 1e6:.1f} M operations, the bidding rows' window "
+        f"passes {pass_ops / 1e6:.1f} M (whole bidding tiles: "
+        f"{tile_ops / 1e6:.1f} M), {nbytes / 1e6:.2f} MB)")
+
+
+def _record_guard_probes():
+    """Wrap the fit engine's band-guard probe so that each call's two
+    matched costs are kept; returns (the list they go to, the restore)."""
+    from reart_tpu_torch.train import engine
+
+    seen = []
+    probe = engine._band_guard_probe
+
+    def recorded(*a, **kw):
+        costs = probe(*a, **kw)
+        seen.append(costs)
+        return costs
+
+    engine._band_guard_probe = recorded
+
+    def restore():
+        engine._band_guard_probe = probe
+
+    return seen, restore
+
+
+def _drive(args, domain, sample, save_dir, what, probes=None):
+    """One run of the command line's main path on the card (no device is
+    named: the entry points take the card by themselves), every launch
+    count set to 0 just before and read just after. Returns (results,
+    launches, seconds per stage, wall seconds)."""
+    from reart_tpu_torch import cli
+    from reart_tpu_torch.profiling import phase_report, reset_phases
+
+    reset_phases()
+    if probes is not None:
+        probes.clear()
+    for w in kernel_wrappers():
+        w.launches = 0
+    t0 = time.perf_counter()
+    results = cli.run_sample(args, domain, sample, save_dir)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    for k, v in results.items():
+        if not math.isfinite(v):
+            raise AssertionError(f"{what}: {k} = {v} is not finite")
+    if read_result_txt(os.path.join(save_dir, "result.txt")).keys() \
+            != results.keys():
+        raise AssertionError(f"{what}: result.txt does not list the results")
+    log(f"{what}: " + ", ".join(f"{k} {v:.4f}" for k, v in results.items()))
+    log(f"{what}: {wall:.2f} s; seconds per stage "
+        + ", ".join(f"{k} {v:.3f}" for k, v in phase_report().items()))
+    log(f"{what}: kernel launches {launches}")
+    return results, launches, phase_report(), wall
+
+
+def _joint_types(payload):
+    """The joint type of each edge of a kinematic model.ckpt.pkl."""
+    pris = payload.get("prismatic_mask")
+    return ["revolute"] * len(payload["edges"]) if pris is None else [
+        "prismatic" if p else "revolute" for p in np.asarray(pris)]
+
+
+def _log_probes(what, probes, guard):
+    for i, (cb, cd) in enumerate(probes):
+        rel = cb / max(cd, 1e-12) - 1.0
+        log(f"{what}: guard probe {i}: banded matched cost {cb:.3f}, dense "
+            f"{cd:.3f}, relative {rel:+.4f} -> "
+            f"{'banded' if rel <= guard else 'dense'}")
+
+
+SAPIEN_PROTOCOL = ("--downsample 1 --num_parts 10 --use_flow_loss "
+                   "--use_assign_loss --n_iter 400 --assign_iter 300 "
+                   "--assign_band_reprobe 50 --seg_refine 2")
+SAPIEN_PROJECTION = ("--model kinematic --tree_search 0 --downsample 1 "
+                     "--use_flow_loss --use_assign_loss --n_iter 100 "
+                     "--assign_iter 50 --assign_band_reprobe 0")
+
+
+def sapien_chain_phase(dev, tmp):
+    """The sapien domain at full width: `make_sapien_scene`, 8 views x 4096
+    points, 6 parts (three revolute and two prismatic joints); the
+    relaxation run from the scene's --flow_file at --downsample 1 (a (7,
+    4096, 4096) LAP every 5 iterations, banded on the card, the guard
+    probing at the phase start and re-probing once), then the projection
+    run from its result.pkl. Fails unless the banded kernel launched."""
+    from reart_tpu_torch import checkpoint, cli
+    from reart_tpu_torch.data.synth import make_sapien_scene
+
+    root = make_sapien_scene(os.path.join(tmp, "sapien"), n_views=8,
+                             n_points=4096, n_parts=6)
+    common = ["sapien", "--sapien_base_folder", root, "--sapien_idx", "0",
+              "--flow_file", os.path.join(root, "flow.npz")]
+    args = cli.build_parser().parse_args(
+        common + ["--save_root", os.path.join(tmp, "sapien_base"),
+                  *SAPIEN_PROTOCOL.split()])
+    sample = cli.dataset_sample(cli.load_dataset(args), 0)
+    probes, restore = _record_guard_probes()
+    out = {}
+    try:
+        save_dir = os.path.join(tmp, "sapien_base", "0")
+        out["relaxation"] = _drive(args, "sapien", sample, save_dir,
+                                   "sapien relaxation run", probes)
+        _log_probes("sapien relaxation run", probes, args.assign_band_guard)
+        if len(probes) != 2:
+            raise AssertionError(f"sapien relaxation run: {len(probes)} guard "
+                                 f"probes, expected the phase start's and "
+                                 f"one re-probe")
+        base = os.path.join(save_dir, "result.pkl")
+        kargs = cli.build_parser().parse_args(
+            common + ["--save_root", os.path.join(tmp, "sapien_kin"),
+                      "--base_result_path", base,
+                      *SAPIEN_PROJECTION.split()])
+        out["projection"] = _drive(kargs, "sapien", sample,
+                                   os.path.join(tmp, "sapien_kin", "0"),
+                                   "sapien projection run", probes)
+        _log_probes("sapien projection run", probes, args.assign_band_guard)
+    finally:
+        restore()
+    for stage, (results, launches, _, _) in out.items():
+        for key in ("full_flow_epe", "per_scan_ri", "multi_scan_ri"):
+            if key not in results:
+                raise AssertionError(f"sapien {stage} run: no {key}")
+        for name in ("auction_solve_banded", "nn1_bidir_coords", "blend3",
+                     "fps"):
+            if launches[name] <= 0:
+                raise AssertionError(f"kernel {name} was not launched by the "
+                                     f"sapien {stage} run")
+    payload = checkpoint.load_checkpoint(
+        os.path.join(tmp, "sapien_kin", "0", "model.ckpt.pkl"))
+    log(f"sapien projection run: joints {_joint_types(payload)}, root "
+        f"trajectory {payload['has_root_trans']}")
+    return {k: v[1] for k, v in out.items()}
+
+
+def real_chain_phase(dev, tmp):
+    """The real domain at full width: `write_real_scene`, 6 OBJ frames (a
+    body, a hinged flap, a slider); `corr --data_domain real` trains the
+    backbone on them (REAL_CORR_STEPS steps, batch 4 x 1024 points); the
+    relaxation run from its SMNN anchors at --num_points 4096 --downsample
+    4; the projection run from its result.pkl, prismatic joints allowed."""
+    from reart_tpu_torch import checkpoint, cli
+    from reart_tpu_torch.data.synth import write_real_scene
+
+    scans = write_real_scene(os.path.join(tmp, "real", "scans"), 6)
+    corr_path = os.path.join(tmp, "real", "corr_model.pkl")
+    cargs = cli.build_parser().parse_args(
+        ["corr", "--data_domain", "real", "--seq_path", scans,
+         "--num_points", "4096", "--steps", str(REAL_CORR_STEPS),
+         "--save_path", corr_path])
+    for w in kernel_wrappers():
+        w.launches = 0
+    t0 = time.perf_counter()
+    corr = cli.run_train_corr(cargs)
+    torch.cuda.synchronize()
+    out = {"corr": (corr, launch_counts(), {}, time.perf_counter() - t0)}
+    log(f"real corr run: {out['corr'][3]:.2f} s, loss {corr['first_loss']:.3f} "
+        f"-> {corr['loss']:.3f}, held-out precision {corr['precision']:.3f} "
+        f"at match rate {corr['match_rate']:.3f}, real pairs "
+        f"{corr['real_match_rate']:.3f}; kernel launches {out['corr'][1]}")
+    common = ["real", "--seq_path", scans, "--num_points", "4096",
+              "--downsample", "4", "--use_flow_loss", "--use_assign_loss",
+              "--corr_model_path", corr_path, "--num_parts", "10"]
+    args = cli.build_parser().parse_args(
+        common + ["--save_root", os.path.join(tmp, "real_base"), "--n_iter",
+                  "400", "--assign_iter", "300"])
+    sample = cli.dataset_sample(cli.load_dataset(args))
+    save_dir = os.path.join(tmp, "real_base", "scans")
+    out["relaxation"] = _drive(args, "real", sample, save_dir,
+                               "real relaxation run")
+    base = os.path.join(save_dir, "result.pkl")
+    if not checkpoint.load_result(base)["joint_connection"]:
+        raise AssertionError("real relaxation run: a single part, no tree")
+    kargs = cli.build_parser().parse_args(
+        common + ["--save_root", os.path.join(tmp, "real_kin"), "--model",
+                  "kinematic", "--tree_search", "0", "--base_result_path",
+                  base, "--n_iter", "100", "--assign_iter", "50"])
+    out["projection"] = _drive(kargs, "real", sample,
+                               os.path.join(tmp, "real_kin", "scans"),
+                               "real projection run")
+    for stage in ("relaxation", "projection"):
+        results, launches = out[stage][:2]
+        if "seg_ri" in results or "cd_err" not in results:
+            raise AssertionError(f"real {stage} run: results {sorted(results)}")
+        for name in ("ball_query", "fps", "blend3", "nn1_bidir_coords",
+                     "auction_solve_resident"):
+            if launches[name] <= 0:
+                raise AssertionError(f"kernel {name} was not launched by the "
+                                     f"real {stage} run")
+    payload = checkpoint.load_checkpoint(
+        os.path.join(tmp, "real_kin", "scans", "model.ckpt.pkl"))
+    log(f"real projection run: joints {_joint_types(payload)}")
+    return {k: v[1] for k, v in out.items()}
+
+
+# the toy sapien run on the card vs on the CPU, from the same parameters and
+# Gumbel draws, the bars of the toy robot run (RUN_TOL) in this domain's
+# units: errors in the data's units (the robot's 0.4 cm is 0.004), the full
+# flow in cm. The relaxation is 200 iterations of a non-convex fit, so a
+# rounding-level difference moves its small errors (a few 1e-4 at a healthy
+# fit) by tens of percent: they are held to absolute bars of 0.1 cm. The
+# projection starts from one result.pkl on both devices and keeps the
+# relative bars of the robot run.
+SAPIEN_PROJ_TOL = {"seg_ri": ("abs", 0.02), "recon_err": ("abs", 0.004),
+                   "cd_err": ("rel", 0.25), "full_flow_epe": ("abs", 0.3),
+                   "per_scan_ri": ("abs", 0.02),
+                   "multi_scan_ri": ("abs", 0.02), "ass_err": ("rel", 0.25),
+                   "screw_err": ("abs", 0.01), "total_err": ("rel", 0.25)}
+SAPIEN_RUN_TOL = {**SAPIEN_PROJ_TOL, "cd_err": ("abs", 0.001),
+                  "ass_err": ("abs", 0.001), "total_err": ("abs", 0.001)}
+# the toy relaxation's seed: it lands in the 3-part basin (lid and drawer
+# apart from the body), where the tree and the joint types are well posed
+TOY_SAPIEN_SEED = 3
+
+
+def _joints(tree):
+    """A tree's joints as unordered part pairs. Off the robot domain the
+    relaxation's edge order and direction carry nothing onward: the
+    projection re-roots the tree at the largest part (kinematic_from_tree),
+    and the direction is the MST's pick between two nearly equal costs."""
+    return sorted(sorted(int(v) for v in e) for e in tree)
+
+
+def toy_sapien_phase(dev, tmp):
+    """A 3-part toy sapien scene (4 views x 300 points: LAPs of 300^2, the
+    dense one-launch solver on both devices) through both stages on the card
+    and on the CPU from the same parameters, Gumbel draws and result.pkl:
+    the relaxation healthy on the card (multi-scan RI > 0.9), its joints
+    equal, its numbers within SAPIEN_RUN_TOL; the projection from the CPU's
+    result.pkl with labels, tree and joint types equal, its numbers within
+    SAPIEN_PROJ_TOL."""
+    from reart_tpu_torch import checkpoint, cli
+    from reart_tpu_torch.data.synth import make_sapien_scene
+
+    root = make_sapien_scene(os.path.join(tmp, "toy_sapien"), n_views=4,
+                             n_points=300, n_parts=3)
+    common = ["sapien", "--sapien_base_folder", root, "--sapien_idx", "0",
+              "--flow_file", os.path.join(root, "flow.npz"), "--silence",
+              "--use_flow_loss", "--use_assign_loss", "--num_parts", "5",
+              "--manual_seed", str(TOY_SAPIEN_SEED)]
+    args = cli.build_parser().parse_args(
+        common + ["--n_iter", "200", "--assign_iter", "120", "--end_tau",
+                  "0.5"])
+    sample = cli.dataset_sample(cli.load_dataset(args), 0)
+
+    def noise(it):
+        return np.random.RandomState(1000 * TOY_SAPIEN_SEED + it).gumbel(
+            size=(300, 5)).astype(np.float32)
+
+    def pair(args, stage):
+        runs = {}
+        for where in ("cpu", dev):
+            save_dir = os.path.join(tmp, f"toy_sapien_{stage}_"
+                                         f"{torch.device(where).type}")
+            res = cli.run_sample(args, "sapien", sample, save_dir,
+                                 device=where, noise=noise)
+            runs[str(where)] = (
+                res, checkpoint.load_result(os.path.join(save_dir,
+                                                         "result.pkl")),
+                checkpoint.load_checkpoint(os.path.join(save_dir,
+                                                        "model.ckpt.pkl")))
+        return runs[str(dev)], runs["cpu"]
+
+    card, cpu = pair(args, "base")
+    log(f"reference: toy sapien relaxation on the card {card[0]}, tree "
+        f"{card[1]['joint_connection']}")
+    log(f"reference: on the CPU {cpu[0]}, tree {cpu[1]['joint_connection']}")
+    if _joints(card[1]["joint_connection"]) != _joints(
+            cpu[1]["joint_connection"]):
+        raise AssertionError("toy sapien: the trees' joints differ between "
+                             "the card and the CPU")
+    if not card[0]["multi_scan_ri"] > 0.9:
+        raise AssertionError(f"toy sapien on the card is not healthy: "
+                             f"multi_scan_ri {card[0]['multi_scan_ri']}")
+    diffs = within(card[0], cpu[0], SAPIEN_RUN_TOL, "toy sapien")
+    log(f"reference: toy sapien relaxation healthy, its joints "
+        f"{_joints(cpu[1]['joint_connection'])} equal, within "
+        f"{SAPIEN_RUN_TOL}: " + ", ".join(f"{k} {v:.2e}"
+                                          for k, v in diffs.items()))
+    base = os.path.join(tmp, "toy_sapien_base_cpu", "result.pkl")
+    kargs = cli.build_parser().parse_args(
+        common + ["--model", "kinematic", "--tree_search", "0",
+                  "--base_result_path", base, "--n_iter", "40",
+                  "--assign_iter", "20"])
+    card, cpu = pair(kargs, "kin")
+    if (card[1]["joint_connection"] != cpu[1]["joint_connection"]
+            or not np.array_equal(card[1]["pred_cano_part"],
+                                  cpu[1]["pred_cano_part"])
+            or _joint_types(card[2]) != _joint_types(cpu[2])):
+        raise AssertionError(
+            f"toy sapien projection: labels, tree or joint types differ "
+            f"between the card and the CPU: trees "
+            f"{card[1]['joint_connection']} vs {cpu[1]['joint_connection']}, "
+            f"joints {_joint_types(card[2])} vs {_joint_types(cpu[2])}")
+    diffs = within(card[0], cpu[0], SAPIEN_PROJ_TOL, "toy sapien projection")
+    log(f"reference: toy sapien projection on the card {card[0]}, joints "
+        f"{_joint_types(card[2])}; labels, tree and "
+        f"joint types equal to the CPU's, within {SAPIEN_PROJ_TOL}: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in diffs.items()))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available; this script runs "
@@ -1804,16 +2225,20 @@ def main():
             dev, tmp, sample)
         corr_flow_launches = corr_flow_run_phase(dev, tmp, sample, seq_dir,
                                                  norm_file, corr_path, stats)
+        toy_sapien_phase(dev, tmp)
+        sapien = sapien_chain_phase(dev, tmp)
+        real = real_chain_phase(dev, tmp)
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
     log(card)  # once more, where the end of a long log still shows it
     kernels = []
     for name, (src, rep) in KERNELS.items():
         st = stats[name]
-        # launches: over the four full-width main paths, each driven from
-        # counts of 0 (the relaxation run, the projection run, the corr
-        # training run, the relaxation run from corr flow)
+        # launches: over the full-width main paths, each driven from counts
+        # of 0 (robot: the relaxation run, the projection run, the corr
+        # training run, the relaxation run from corr flow; sapien: both
+        # runs; real: the corr training run and both runs)
         paths = (run_launches, projection_launches, corr_launches,
-                 corr_flow_launches)
+                 corr_flow_launches, *sapien.values(), *real.values())
         entry = {"name": name, "route": "cuda", "source": src,
                  "replaces": rep,
                  "launches": sum(p[name] for p in paths),
@@ -1821,6 +2246,11 @@ def main():
                  "launches_projection": projection_launches[name],
                  "launches_corr_train": corr_launches[name],
                  "launches_corr_flow_run": corr_flow_launches[name],
+                 "launches_sapien_run": sapien["relaxation"][name],
+                 "launches_sapien_projection": sapien["projection"][name],
+                 "launches_real_corr_train": real["corr"][name],
+                 "launches_real_run": real["relaxation"][name],
+                 "launches_real_projection": real["projection"][name],
                  "launches_fit": fit_launches[name],
                  "max_abs_err": st["max_abs_err"], "ms": st["ms"],
                  "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],

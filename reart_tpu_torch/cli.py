@@ -1,31 +1,43 @@
-"""Command line of the port: `python -m reart_tpu_torch robot [flags]` and
-`python -m reart_tpu_torch corr [flags]` (reart_tpu/cli.py).
+"""Command line of the port: `python -m reart_tpu_torch {robot,sapien,real}
+[flags]` and `python -m reart_tpu_torch corr [flags]` (reart_tpu/cli.py).
 
 `corr` trains the correspondence backbone (PointNet++ MSG) on synthetic
-rigid-part deformations of a robot sequence's own frames and saves a
-checkpoint for `--corr_model_path`.
+rigid-part deformations of a sequence's own frames (`--data_domain robot`,
+`sapien` or `real`) and saves a checkpoint for `--corr_model_path`.
 
-The robot domain's two stages, end to end. `--model base` (relaxation):
-load the sequence, build the flow anchors (`--flow_provider corr`, the
-default: SMNN matches of the backbone's features on clouds normalised by
-`--normalize_file`; `gt`: from the GT clouds), fit the base
-model, then `finalize`: the segmentation E-step, the graph stage (denoise,
-merge, MST, relabel), the metrics, the tree edit distance against the GT
-graph, the selection energy and the result files (result.txt, result.pkl,
-model.ckpt.pkl). `--model kinematic --base_result_path <result.pkl>`
-(projection): build the kinematic tree and its screws from the relaxation
-result, fit the kinematic model with the same loss stack, then `finalize`
-on the fixed tree with the retargeting error from inverse kinematics.
-`--resume` starts either stage from a model.ckpt.pkl, `--evaluate` skips
-the fit. Flags and defaults are the JAX package's for the robot domain.
+Each domain runs two stages. `--model base` (relaxation): load the
+sequence, build the flow anchors, fit the base model, then `finalize`: the
+segmentation E-step, the graph stage (denoise, merge, MST, relabel), the
+metrics, the selection energy and the result files (result.txt,
+result.pkl, model.ckpt.pkl). `--model kinematic --base_result_path
+<result.pkl>` (projection): build the kinematic tree and its screws from
+the relaxation result, fit the kinematic model with the same loss stack,
+then `finalize` on the fixed tree. `--resume` starts either stage from a
+model.ckpt.pkl, `--evaluate` skips the fit. Flags and per-domain defaults
+are the JAX package's.
+
+  * robot: flow from the correspondence model's SMNN matches on clouds
+    normalised by `--normalize_file` (`--flow_provider corr`) or from the
+    GT clouds (`gt`); the assignment loss replaces recon after assign_iter;
+    revolute joints; TED against the GT graph; the retargeting error of the
+    kinematic model by inverse kinematics.
+  * sapien (an mbs-sapien scene, `--sapien_idx`): flow from `--flow_file`
+    or the external msync nets (`--flow_provider msync`), or the
+    correspondence model (`corr`, clouds in the unit ball); recon always
+    on; poses aligned to the root part for merging, the MST and the joints,
+    prismatic joints and a root trajectory; the full-flow error between
+    every pair of views and per- and multi-scan RI; at `--downsample 1` a
+    4096^2 LAP, which takes the banded solve on the card.
+  * real (a directory of mesh scans, no GT): flow from the correspondence
+    model on clouds normalised by the canonical mesh; recon always on;
+    prismatic joints allowed; the Chamfer error and the energy.
 
 Everything runs on the CUDA device unless `--device cpu` asks for the plain
 PyTorch versions. Tensors stay on that device; the combinatorial graph
-logic is numpy on the host. Not here yet, each raising NotImplementedError:
-`corr --data_domain sapien|real`, `--tree_search` other than 0 or 1,
-torch-format (zip) checkpoints of the fit, and a LAP past 1024^2 with
-`--assign_band` other than 0 on a CUDA device. The gif/html artifacts and the mid-fit snapshot metrics
-are not written.
+logic is numpy on the host. Not here yet, each raising NotImplementedError
+that names slice 5: `--tree_search` other than 0 or 1, `--batch_seq`,
+`--auto_cano`, `--snapshot_metrics` / `--snapshot_graph`, `--save_vis`
+and torch-format (zip) checkpoints. The gif/html artifacts are not written.
 """
 
 from __future__ import annotations
@@ -47,7 +59,8 @@ from reart_tpu_torch.profiling import phase_report, phase_timer
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description="reart_tpu_torch command line")
     sub = parser.add_subparsers(dest="domain", required=True)
-    _robot_args(sub.add_parser("robot"))
+    for domain in ("robot", "sapien", "real"):
+        _common_args(sub.add_parser(domain), domain)
     _corr_args(sub.add_parser(
         "corr", help="train the correspondence backbone on a sequence's "
                      "own frames"))
@@ -64,8 +77,7 @@ def _corr_args(p: argparse.ArgumentParser):
     p.add_argument("--manual_seed", default=2, type=int)
     p.add_argument("--data_domain", default="robot",
                    choices=["robot", "real", "sapien"],
-                   help="which dataset loader and normalisation to use "
-                        "(only robot is ported)")
+                   help="which dataset loader and normalisation to use")
     p.add_argument("--seq_path", default=["data/robot/nao"], type=str,
                    nargs="+", help="one or more sequences (category-level "
                                    "training pools their frames)")
@@ -73,6 +85,9 @@ def _corr_args(p: argparse.ArgumentParser):
     p.add_argument("--cano_idx", default=0, type=int)
     p.add_argument("--normalize_file",
                    default="data/category_normalize_scale.pkl", type=str)
+    p.add_argument("--sapien_base_folder", default="data/mbs-sapien",
+                   type=str)
+    p.add_argument("--sapien_idx", default=[212], type=int, nargs="+")
     p.add_argument("--save_path", default="corr_model.pkl", type=str)
     p.add_argument("--save_torch", default=None, type=str,
                    help="also export the torch-format checkpoint (the "
@@ -120,7 +135,10 @@ def _corr_args(p: argparse.ArgumentParser):
                         "raw discrete targets")
 
 
-def _robot_args(p: argparse.ArgumentParser):
+def _common_args(p: argparse.ArgumentParser, domain: str):
+    """The flags of a domain's run, with the JAX package's per-domain
+    defaults."""
+    robot = domain == "robot"
     p.add_argument("--device", default=None, type=str,
                    help="torch device; the CUDA device when not given, "
                         "'cpu' runs the plain PyTorch versions")
@@ -129,19 +147,22 @@ def _robot_args(p: argparse.ArgumentParser):
                    help="start from this model.ckpt.pkl (either model)")
     p.add_argument("--evaluate", action="store_true",
                    help="no fit, no energy, no result.pkl / model.ckpt.pkl")
-    p.add_argument("--snapshot_gap", default=100, type=int,
+    p.add_argument("--snapshot_gap", default=100 if robot else 10, type=int,
                    help="iterations between the fit's progress lines")
     p.add_argument("--cano_idx", default=0, type=int)
     p.add_argument("--num_points", default=4096, type=int)
-    p.add_argument("--seq_path", default="data/robot/nao", type=str)
-    p.add_argument("--start_tau", default=5.0, type=float)
+    p.add_argument("--seq_path", default={
+        "robot": "data/robot/nao", "sapien": "", "real": "data/real/toy",
+    }[domain], type=str)
+    p.add_argument("--start_tau", default=5.0 if robot else 1.0, type=float)
     p.add_argument("--end_tau", default=1.0, type=float)
     p.add_argument("--seg_lr", default=1e-3, type=float)
     p.add_argument("--trans_lr", default=1e-2, type=float)
     p.add_argument("--weight_decay", default=0.0, type=float)
-    p.add_argument("--n_iter", default=15000, type=int)
-    p.add_argument("--assign_iter", default=5000, type=int)
-    p.add_argument("--num_parts", default=20, type=int)
+    p.add_argument("--n_iter", default=15000 if robot else 2000, type=int)
+    p.add_argument("--assign_iter", default=5000 if robot else 1000,
+                   type=int)
+    p.add_argument("--num_parts", default=20 if robot else 10, type=int)
     p.add_argument("--model", default="base", choices=["base", "kinematic"])
     p.add_argument("--base_result_path", default=None, type=str,
                    help="the relaxation run's result.pkl, where the "
@@ -149,23 +170,31 @@ def _robot_args(p: argparse.ArgumentParser):
     p.add_argument("--use_flow_loss", action="store_true")
     p.add_argument("--use_robust_loss", action="store_true")
     p.add_argument("--use_assign_loss", action="store_true")
-    p.add_argument("--downsample", default=4, type=int)
+    p.add_argument("--downsample", default=4 if domain != "sapien" else 1,
+                   type=int)
     p.add_argument("--assign_gap", default=5, type=int)
     p.add_argument("--assign_sweeps", default=100, type=int,
                    help="auction sweep bound per epsilon phase")
     p.add_argument("--assign_band", default=-1, type=int,
                    help="column-window width of the banded LAP for "
-                        "assignment problems past 1024^2; -1 = auto, 0 = "
-                        "dense path (the only one ported: on a CUDA device "
-                        "any other value raises for such a problem)")
-    p.add_argument("--assign_band_guard", default=0.05, type=float)
-    p.add_argument("--assign_band_reprobe", default=1000, type=int)
+                        "assignment problems past 1024^2 on the card; -1 = "
+                        "auto (n//4 clamped to [512, 1024]), 0 = dense path")
+    p.add_argument("--assign_band_guard", default=0.05, type=float,
+                   help="auto band: solve the first assignment problem "
+                        "banded and dense and fall back to dense when the "
+                        "banded matched cost is worse by more than this "
+                        "fraction (0 disables)")
+    p.add_argument("--assign_band_reprobe", default=1000, type=int,
+                   help="re-run the guard's probe every this many "
+                        "assignment-phase iterations (0 = only at the phase "
+                        "start)")
     p.add_argument("--lambda_assign", default=3e-1, type=float)
     p.add_argument("--lambda_flow", default=1.0, type=float)
-    p.add_argument("--lambda_joint", default=100.0, type=float)
+    p.add_argument("--lambda_joint", default=100.0 if robot else 1e-1,
+                   type=float)
     p.add_argument("--cano_dist_thr", default=1e-2, type=float)
     p.add_argument("--merge_thr", default=3e-2, type=float)
-    p.add_argument("--merge_it", default=2, type=int)
+    p.add_argument("--merge_it", default=2 if robot else 3, type=int)
     p.add_argument("--save_root", default="exp", type=str)
     p.add_argument("--tree_search", default=-1, type=int,
                    help="kinematic stage: energy-scored sweep over the MST "
@@ -176,10 +205,15 @@ def _robot_args(p: argparse.ArgumentParser):
                         "at the end of the base stage (0 = off)")
     p.add_argument("--silence", action="store_true",
                    help="suppress per-phase prints")
-    p.add_argument("--normalize_file",
-                   default="data/category_normalize_scale.pkl", type=str,
-                   help="pickle {sequence name: {centroid, scale}}: the "
-                        "cloud normalisation of the corr model")
+    for flag in ("--auto_cano", "--snapshot_metrics", "--snapshot_graph",
+                 "--save_vis"):
+        p.add_argument(flag, action="store_true",
+                       help="ported in slice 5: raises")
+    if robot:
+        p.add_argument("--normalize_file",
+                       default="data/category_normalize_scale.pkl", type=str,
+                       help="pickle {sequence name: {centroid, scale}}: the "
+                            "cloud normalisation of the corr model")
     p.add_argument("--match_th", default=0.9, type=float,
                    help="SMNN ratio-test threshold of the corr-model "
                         "matching")
@@ -196,21 +230,46 @@ def _robot_args(p: argparse.ArgumentParser):
                         "units)")
     p.add_argument("--corr_model_path",
                    default="pretrained/corr_model.pth.tar", type=str)
-    p.add_argument("--flow_provider", default="corr", choices=["corr", "gt"],
-                   help="flow supervision source: the frozen corr model or "
-                        "GT correspondences (robot datasets carry per-point "
-                        "GT)")
+    if domain == "sapien":
+        p.add_argument("--sapien_base_folder", default="data/mbs-sapien",
+                       type=str)
+        p.add_argument("--sapien_idx", default=212, type=int)
+        p.add_argument("--flow_provider", default="msync",
+                       choices=["msync", "corr"],
+                       help="flow supervision source: --flow_file or the "
+                            "external msync nets, or the correspondence "
+                            "model (e.g. one `corr --data_domain sapien` "
+                            "trained)")
+        p.add_argument("--batch_seq", default=None, type=str,
+                       help="ported in slice 5: raises")
+        p.add_argument("--flow_file", default=None, type=str,
+                       help="precomputed flow .npz: flow (T-1, N, 3), conf "
+                            "(T-1, N); anchors where conf > 0.5")
+        p.add_argument("--flow_model_config_path", type=str,
+                       default="msync/config/articulated-full.yaml",
+                       help="msync config, used without --flow_file")
+        p.add_argument("--flow_model_path", type=str,
+                       default="msync/ckpt/articulated-full/best.pth.tar",
+                       help="msync FlowNet/ConfNet checkpoint")
+    else:
+        p.add_argument("--flow_provider", default="corr",
+                       choices=["corr", "gt"],
+                       help="flow supervision source: the frozen corr model "
+                            "or GT correspondences (robot datasets carry "
+                            "per-point GT; elsewhere gt means corr)")
 
 
-def fit_config(args):
+def fit_config(args, domain: str | None = None):
     from reart_tpu_torch.train import FitConfig
 
+    domain = domain or args.domain
     return FitConfig(
         n_iter=args.n_iter,
         use_assign_loss=args.use_assign_loss,
         use_flow_loss=args.use_flow_loss,
         use_robust_loss=args.use_robust_loss,
-        always_recon=False,  # robot: the assignment loss replaces recon
+        # robot: the assignment loss replaces recon; elsewhere recon stays
+        always_recon=domain != "robot",
         assign_iter=args.assign_iter,
         assign_gap=args.assign_gap,
         downsample=args.downsample,
@@ -233,7 +292,16 @@ def fit_config(args):
 # setup helpers
 # ---------------------------------------------------------------------------
 
-def load_dataset(args):
+def load_dataset(args, domain: str | None = None):
+    domain = domain or args.domain
+    if domain == "sapien":
+        from reart_tpu_torch.data.sapien import SapienDataset
+
+        return SapienDataset(args.sapien_base_folder, args.cano_idx)
+    if domain == "real":
+        from reart_tpu_torch.data.real import RealSequence
+
+        return RealSequence(args.seq_path, args.num_points, args.cano_idx)
     from reart_tpu_torch.data.robot import RobotSequence
 
     return RobotSequence(args.seq_path, args.num_points, args.cano_idx)
@@ -242,38 +310,76 @@ def load_dataset(args):
 # what inverse kinematics reads off the dataset object in the JAX package;
 # here it rides in the sample and stays out of result.pkl
 IK_KEYS = ("pose_list", "cano_idx", "novel_pose_list")
+# every key that rides beside the dataset's sample: also the real
+# dataset's (centroid, scale) from its canonical mesh
+SIDE_KEYS = IK_KEYS + ("normalize",)
 
 
-def dataset_sample(dataset) -> dict:
-    """The sequence's sample with the dataset's poses beside it."""
-    return dict(dataset[0], pose_list=dataset.pose_list,
-                cano_idx=dataset.cano_idx,
-                novel_pose_list=dataset.novel_pose_list)
+def dataset_sample(dataset, idx: int = 0) -> dict:
+    """Sample `idx` of the dataset with what the run reads off the dataset
+    object beside it: a robot sequence's poses, a real sequence's
+    normalisation."""
+    from reart_tpu_torch.data.real import RealSequence
+    from reart_tpu_torch.data.robot import RobotSequence
+
+    sample = dict(dataset[idx])
+    if isinstance(dataset, RobotSequence):
+        sample.update(pose_list=dataset.pose_list, cano_idx=dataset.cano_idx,
+                      novel_pose_list=dataset.novel_pose_list)
+    elif isinstance(dataset, RealSequence):
+        sample["normalize"] = (dataset.centroid, float(dataset.scale))
+    return sample
 
 
-def corr_normalization(args, domain: str, seq_path: str | None = None):
+def corr_normalization(args, domain: str, sample: dict | None = None,
+                       seq_path: str | None = None):
     """(centroid, scale) of the clouds the correspondence extractor sees:
     one convention for training (run_train_corr) and inference
     (setup_flow). robot: the entry of --normalize_file under the
-    sequence's directory name."""
-    if domain != "robot":
-        raise NotImplementedError(
-            f"domain {domain!r}: the sapien and real runs are slice 4")
-    from reart_tpu_torch.data.common import load_normalize_dict
+    sequence's directory name; real: the canonical mesh's (the sample's
+    `normalize`); sapien: the unit ball of the sample's clouds."""
+    if domain == "robot":
+        from reart_tpu_torch.data.common import load_normalize_dict
 
-    cat = (seq_path or args.seq_path).rstrip("/").split("/")[-1]
-    info = load_normalize_dict(args.normalize_file)[cat]
-    return info["centroid"], float(info["scale"])
+        cat = (seq_path or args.seq_path).rstrip("/").split("/")[-1]
+        info = load_normalize_dict(args.normalize_file)[cat]
+        return info["centroid"], float(info["scale"])
+    if domain == "real":
+        centroid, scale = sample["normalize"]
+        return centroid, float(scale)
+    flat = np.asarray(sample["complete_pc_list"], np.float32).reshape(-1, 3)
+    centroid = flat.mean(0)
+    radius = float(np.linalg.norm(flat - centroid, axis=-1).max())
+    return centroid, 1.0 / max(radius, 1e-6)
 
 
-def setup_flow(args, sample, device=None):
+def setup_flow(args, sample, device=None, domain: str | None = None):
     """The FlowContext of the fit, or None without --use_flow_loss."""
     if not args.use_flow_loss:
         return None
-    dev = resolve_device(device)
-    if args.flow_provider == "gt":
-        from reart_tpu_torch.train import FlowContext
+    from reart_tpu_torch.train import FlowContext
 
+    domain = domain or args.domain
+    dev = resolve_device(device)
+    complete = sample["complete_pc_list"]
+    if domain == "sapien" and args.flow_provider != "corr":
+        # precomputed (or msync) flows anchor every source point whose
+        # confidence passes 0.5 with its predicted flow
+        from reart_tpu_torch.sapien_eval import (
+            compute_flow_msync,
+            load_precomputed_flow,
+        )
+
+        if args.flow_file is not None:
+            flow, conf = load_precomputed_flow(args.flow_file)
+        else:
+            flow, conf = compute_flow_msync(
+                complete, args.flow_model_config_path, args.flow_model_path)
+        keep = [conf[t] > 0.5 for t in range(flow.shape[0])]
+        return FlowContext.from_lists(
+            [complete[t][k] for t, k in enumerate(keep)],
+            [flow[t][k] for t, k in enumerate(keep)], device=dev)
+    if domain == "robot" and args.flow_provider == "gt":
         # GT-correspondence flow anchors (per-point GT poses in the dataset)
         gt = sample["complete_gt_pc_list"]
         return FlowContext.from_lists(
@@ -285,9 +391,9 @@ def setup_flow(args, sample, device=None):
     from reart_tpu_torch.models.pointnet2 import load_corr_model
 
     model = load_corr_model(args.corr_model_path, device=dev)
-    centroid, scale = corr_normalization(args, "robot")
+    centroid, scale = corr_normalization(args, domain, sample)
     return build_flow_context(
-        sample["complete_pc_list"], model, centroid=centroid, scale=scale,
+        complete, model, centroid=centroid, scale=scale,
         matching="smnn", th=args.match_th, disp_gate=args.match_disp_gate,
         rigid_refine_k=args.match_refine_k, chain_r=args.match_chain_r,
         device=dev)
@@ -300,20 +406,27 @@ def setup_flow(args, sample, device=None):
 def _corr_training_frames(args):
     """The normalised training frames of one or more sequences (the corr
     model is category-level, so `corr` pools the frames of every
-    --seq_path), each sequence normalised as setup_flow will normalise it
-    at fit time. Returns (frames (F, N, 3), frames per sequence)."""
-    from reart_tpu_torch.data.robot import RobotSequence
+    --seq_path, or of every --sapien_idx), each sequence normalised as
+    setup_flow will normalise it at fit time. Returns (frames (F, N, 3),
+    frames per sequence)."""
+    import copy
+
     from reart_tpu_torch.flow import normalize_pc_list
 
-    if args.data_domain != "robot":
-        raise NotImplementedError(
-            f"corr --data_domain {args.data_domain}: the sapien and real "
-            f"domains are ported in slice 4")
+    domain = args.data_domain
+    if domain == "sapien":
+        dataset = load_dataset(args, "sapien")
+        samples = [(dataset[idx], None) for idx in args.sapien_idx]
+    else:
+        samples = []
+        for sp in args.seq_path:
+            sub = copy.copy(args)
+            sub.seq_path = sp
+            samples.append((dataset_sample(load_dataset(sub, domain)), sp))
     blocks = []
-    for sp in args.seq_path:
-        dataset = RobotSequence(sp, args.num_points, args.cano_idx)
-        complete = np.asarray(dataset[0]["complete_pc_list"], np.float32)
-        centroid, scale = corr_normalization(args, "robot", sp)
+    for sample, sp in samples:
+        complete = np.asarray(sample["complete_pc_list"], np.float32)
+        centroid, scale = corr_normalization(args, domain, sample, sp)
         blocks.append(normalize_pc_list(
             complete, np.asarray(centroid, np.float32), np.float32(scale)))
     n_min = min(b.shape[1] for b in blocks)
@@ -411,8 +524,8 @@ def run_train_corr(args, device=None):
     if args.save_torch:
         save_corr_model_torch(args.save_torch, model)
         print(f"saved torch-format checkpoint {args.save_torch}")
-    print(f"saved {args.save_path} (use: robot --flow_provider corr "
-          f"--corr_model_path {args.save_path})", flush=True)
+    print(f"saved {args.save_path} (use: {args.data_domain} --flow_provider "
+          f"corr --corr_model_path {args.save_path})", flush=True)
     return {"loss": float(losses[-1]), "first_loss": float(losses[0]),
             "losses": np.asarray(losses), "precision": prec, "match_rate": rate,
             "real_match_rate": real_rate, "train_seconds": train_seconds,
@@ -423,14 +536,22 @@ def run_train_corr(args, device=None):
 # kinematic model construction
 # ---------------------------------------------------------------------------
 
+def _root_aligned(seg_part, trans_list):
+    """Poses relative to the root part, the part with the most points:
+    what the sapien and real runs merge, span and type joints on."""
+    from reart_tpu_torch.sapien_eval import compute_align_trans
+
+    root_part = int(np.bincount(np.asarray(seg_part)).argmax())
+    return compute_align_trans(trans_list, trans_list[:, root_part])
+
+
 def kinematic_from_tree(args, domain: str, cano_pc, seg_part, trans_list,
                         joint_connection, pad_depth=None, device=None):
     """Labels, poses and a tree -> (KinematicModel, KinematicState): the
     relabelling, the child-to-parent DAG and the screws of its edges. The
-    robot domain builds a revolute-only model."""
-    if domain != "robot":
-        raise NotImplementedError(
-            f"domain {domain!r}: the sapien and real runs are later slices")
+    robot domain builds a revolute-only model; the others type each joint
+    (revolute or prismatic) on the poses aligned to the root part, the part
+    with the most points, and give the model that part's trajectory."""
     from reart_tpu_torch.graph import build_graph, extract_kinematic
     from reart_tpu_torch.models.kinematic import (
         KinematicModel,
@@ -441,13 +562,28 @@ def kinematic_from_tree(args, domain: str, cano_pc, seg_part, trans_list,
     trans_list = torch.as_tensor(trans_list, dtype=torch.float32, device=dev)
     new_seg, new_trans, new_conn = extract_kinematic(
         seg_part, trans_list, joint_connection)
-    edges, root, axis, moment, theta, _ = build_graph(
-        new_conn, new_trans, revolute_only=True)
+    if domain == "robot":
+        edges, root, axis, moment, theta, _ = build_graph(
+            new_conn, new_trans, revolute_only=True)
+        state = make_kinematic_state(new_seg, cano_pc, edges, root,
+                                     pad_depth=pad_depth, device=dev)
+        params = KinematicModel(new_trans.shape[0], state.num_edges,
+                                axis_list=axis, moment_list=moment,
+                                theta_list=theta, device=dev)
+        return params, state
+    root_part = int(np.bincount(np.asarray(new_seg)).argmax())
+    root_trans = new_trans[:, root_part]
+    (edges, root, axis, moment, theta, distance, _,
+     joint_types) = build_graph(new_conn, _root_aligned(new_seg, new_trans),
+                                revolute_only=False, root_part=root_part,
+                                return_joint_type=True)
     state = make_kinematic_state(new_seg, cano_pc, edges, root,
+                                 joint_types=joint_types, has_root_trans=True,
                                  pad_depth=pad_depth, device=dev)
     params = KinematicModel(new_trans.shape[0], state.num_edges,
                             axis_list=axis, moment_list=moment,
-                            theta_list=theta, device=dev)
+                            theta_list=theta, distance_list=distance,
+                            root_trans=root_trans, device=dev)
     return params, state
 
 
@@ -455,7 +591,7 @@ def build_kinematic_from_result(args, domain: str, cano_pc, result: dict,
                                 device=None):
     """The relaxation result -> (KinematicModel, KinematicState). A tree
     stored in the result is used as stored; else the parts are merged and
-    the MST is built here."""
+    the MST is built here (on root-aligned poses off the robot domain)."""
     from reart_tpu_torch.graph import merging_wrapper, mst_wrapper
 
     if args.tree_search not in (0, 1):
@@ -470,14 +606,19 @@ def build_kinematic_from_result(args, domain: str, cano_pc, result: dict,
     seg_part = np.asarray(result["pred_cano_part"])
     trans_list = torch.as_tensor(np.asarray(result["pred_pose_list"]),
                                  dtype=torch.float32, device=dev)
+
+    def aligned(seg):
+        return (trans_list if domain == "robot"
+                else _root_aligned(seg, trans_list))
+
     stored = np.asarray(result.get("joint_connection", ()), dtype=np.int64)
     if stored.size:
         joint_connection = stored
     else:
-        seg_part = merging_wrapper(seg_part, trans_list, cano_pc,
+        seg_part = merging_wrapper(seg_part, aligned(seg_part), cano_pc,
                                    args.merge_thr)
         joint_connection = mst_wrapper(
-            seg_part, trans_list, cano_pc, num_fps=20,
+            seg_part, aligned(seg_part), cano_pc, num_fps=20,
             cano_dist_thr=args.cano_dist_thr,
             joint_cost_weight=args.lambda_joint)
     return kinematic_from_tree(args, domain, cano_pc, seg_part, trans_list,
@@ -493,18 +634,19 @@ def finalize(args, domain: str, sample, seg_part, trans_list, params, state,
     """Everything the reference does at its last iteration: seg refinement,
     graph stage, metrics, retargeting, TED, energy, result files.
 
-    sample: the dataset's dict of numpy arrays (`gt_edges`, where present,
-    stands in for the sequence's graph.gpickle; IK_KEYS for the retargeting
-    error); seg_part (N,) int labels and trans_list (T-1, P, 4, 4) of the
-    final forward, tensors or arrays; params: the fitted BaseModel, or the
-    KinematicModel with its `state`. A kinematic model keeps its labels and
-    its tree (no seg refinement, no merge, no MST) and gets `retarget_err`
-    from inverse kinematics. With --evaluate there is no energy and only
+    sample: the dataset's dict of numpy arrays with what rides beside it
+    (`dataset_sample`: a robot sequence's IK_KEYS for the retargeting
+    error; `gt_edges`, where present, stands in for the sequence's
+    graph.gpickle); seg_part (N,) int labels and trans_list (T-1, P, 4, 4)
+    of the final forward, tensors or arrays; params: the fitted BaseModel,
+    or the KinematicModel with its `state`. A kinematic model keeps its
+    labels and its tree (no seg refinement, no merge, no MST). Off the robot
+    domain, merging and the MST read poses aligned to the root part, the
+    errors are in the data's units, sapien adds the full-flow error and the
+    per- and multi-scan RI, and there is no retargeting, no TED and no group
+    term in the energy. With --evaluate there is no energy and only
     result.txt is written. Runs on `device` (the card when None). Returns
     the dict of numbers that result.txt lists."""
-    if domain != "robot":
-        raise NotImplementedError(
-            f"domain {domain!r}: the sapien and real runs are later slices")
     from reart_tpu_torch import checkpoint as ckpt
     from reart_tpu_torch import metrics as M
     from reart_tpu_torch.graph import (
@@ -523,12 +665,16 @@ def finalize(args, domain: str, sample, seg_part, trans_list, params, state,
 
     dev = resolve_device(device)
     quiet = args.silence
+    robot = domain == "robot"
 
     def sub(name):
         return phase_timer(f"finalize/{name}", verbose=not quiet)
 
     def tensor(x):
         return torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+    def aligned(trans):
+        return trans if robot else _root_aligned(seg_part, trans)
 
     cano_pc = tensor(sample["cano_pc"])
     pc_list = tensor(sample["pc_list"])
@@ -547,13 +693,13 @@ def finalize(args, domain: str, sample, seg_part, trans_list, params, state,
     with sub("graph"):
         seg_part = denoise_seg_label(seg_part, cano_pc, min_num=20)
         if not is_kinematic and len(np.unique(seg_part)) > 1:
-            seg_part = merging_wrapper(seg_part, trans_list, cano_pc,
+            seg_part = merging_wrapper(seg_part, aligned(trans_list), cano_pc,
                                        args.merge_thr, n_it=args.merge_it)
         if is_kinematic:
             joint_connection = np.asarray([list(e) for e in state.edges])
         elif len(np.unique(seg_part)) > 1:
             joint_connection = mst_wrapper(
-                seg_part, trans_list, cano_pc, num_fps=20,
+                seg_part, aligned(trans_list), cano_pc, num_fps=20,
                 cano_dist_thr=args.cano_dist_thr,
                 joint_cost_weight=args.lambda_joint)
         else:  # degenerate single-part fit: rigid object, no tree
@@ -574,56 +720,85 @@ def finalize(args, domain: str, sample, seg_part, trans_list, params, state,
     complete_pred = complete_pred_t.cpu().numpy()
 
     results = {}
+    unit = 100.0 if robot else 1.0  # robot errors in cm
     with sub("metrics"):
         if "gt_flow_list" in sample:
-            pred_flow = complete_pred[1:] - complete_pred[:-1]
-            epe, acc1, acc2, angle = M.eval_flow(
-                pred_flow, sample["gt_flow_list"], 0.005, 0.01)
-            results.update(flow_epe=epe * 100.0, flow_acc5=acc1,
-                           flow_acc10=acc2, flow_angle=angle)
+            if robot:
+                pred_flow = complete_pred[1:] - complete_pred[:-1]
+                epe, acc1, acc2, angle = M.eval_flow(
+                    pred_flow, sample["gt_flow_list"], 0.005, 0.01)
+                results.update(flow_epe=epe * 100.0, flow_acc5=acc1,
+                               flow_acc10=acc2, flow_angle=angle)
             results["seg_ri"] = M.eval_seg(sample["gt_cano_part"], seg_part)
             mse = np.sqrt(((complete_pred - sample["complete_gt_pc_list"])
                            ** 2).sum(-1)).mean(1).mean()
-            results["recon_err"] = float(mse) * 100.0
-        results["cd_err"] = 100.0 * M.compute_chamfer_list(
+            results["recon_err"] = float(mse) * unit
+        results["cd_err"] = unit * M.compute_chamfer_list(
             pred_pc, pc_list, reduction="mean")
 
-    # retargeting needs the kinematic model
-    if is_kinematic:
-        from reart_tpu_torch.ik import ik
+    if domain == "sapien" and "gt_full_flow" in sample:
+        from reart_tpu_torch.sapien_eval import (
+            compute_full_flow,
+            eval_full_flow,
+            seg_propagation_list,
+        )
 
-        with sub("ik"):
-            results["retarget_err"] = ik(sample, "kinematic", params,
-                                         state=state, tau=tau)
-    else:
-        results["retarget_err"] = 9999.0
+        with sub("sapien_eval"):
+            seg_list = seg_propagation_list(pc_list, pred_pc, seg_part)
+            eye = torch.eye(4, device=dev).expand(1, trans_list.shape[1], 4,
+                                                  4)
+            complete_trans = torch.cat(
+                [trans_list[:cano_idx], eye, trans_list[cano_idx:]], 0)
+            complete_seg = np.concatenate(
+                [seg_list[:cano_idx], seg_part[None], seg_list[cano_idx:]], 0)
+            full_flow = compute_full_flow(sample["complete_pc_list"],
+                                          complete_seg, complete_trans,
+                                          device=dev)
+            results["full_flow_epe"] = 100.0 * eval_full_flow(
+                full_flow, sample["gt_full_flow"])
+            gt_parts = sample["complete_gt_part_list"]
+            results["per_scan_ri"] = float(np.mean(
+                [M.eval_seg(g, p) for g, p in zip(gt_parts, complete_seg)]))
+            results["multi_scan_ri"] = M.eval_seg(gt_parts.reshape(-1),
+                                                  complete_seg.reshape(-1))
 
-    # TED against the GT graph
-    with sub("ted"):
-        root_cost = compute_root_cost(trans_list).cpu().numpy()
-        labels = (np.unique(joint_connection) if joint_connection_list
-                  else np.array([0]))
-        pred_root = int(labels[root_cost.argmin()])
-        if "gt_edges" in sample:
-            gt_edges = [tuple(e) for e in sample["gt_edges"]]
+    if robot:
+        # retargeting needs the kinematic model
+        if is_kinematic:
+            from reart_tpu_torch.ik import ik
+
+            with sub("ik"):
+                results["retarget_err"] = ik(sample, "kinematic", params,
+                                             state=state, tau=tau)
         else:
-            from reart_tpu_torch.data.common import load_gt_graph
+            results["retarget_err"] = 9999.0
 
-            _, gt_edges = load_gt_graph(args.seq_path)
-        results["ted"] = compute_ted(joint_connection_list, pred_root,
-                                     gt_edges, find_root_node(gt_edges))
+        # TED against the GT graph
+        with sub("ted"):
+            root_cost = compute_root_cost(trans_list).cpu().numpy()
+            labels = (np.unique(joint_connection) if joint_connection_list
+                      else np.array([0]))
+            pred_root = int(labels[root_cost.argmin()])
+            if "gt_edges" in sample:
+                gt_edges = [tuple(e) for e in sample["gt_edges"]]
+            else:
+                from reart_tpu_torch.data.common import load_gt_graph
+
+                _, gt_edges = load_gt_graph(args.seq_path)
+            results["ted"] = compute_ted(joint_connection_list, pred_root,
+                                         gt_edges, find_root_node(gt_edges))
 
     if not args.evaluate:
         with sub("energy"):
             results.update(M.energy(
                 pred_pc, pc_list, trans_list, joint_connection, seg_part,
-                complete_pred_pc_list=complete_pred_t, include_group=True))
+                complete_pred_pc_list=complete_pred_t, include_group=robot))
 
         with sub("save"):
             ckpt.save_result(
                 os.path.join(save_dir, "result.pkl"), seg_part, trans_list,
                 cano_idx, joint_connection_list,
-                {k: v for k, v in sample.items() if k not in IK_KEYS})
+                {k: v for k, v in sample.items() if k not in SIDE_KEYS})
             ckpt.save_checkpoint(os.path.join(save_dir, "model.ckpt.pkl"),
                                  params, tau, cano_idx, state=state)
 
@@ -670,7 +845,7 @@ def _load_model(args, cano_pc, pose_len: int, dev):
         raise ValueError("--model kinematic needs --base_result_path (the "
                          "relaxation run's result.pkl) or --resume")
     params, state = build_kinematic_from_result(
-        args, "robot", cano_pc, ckpt.load_result(args.base_result_path),
+        args, args.domain, cano_pc, ckpt.load_result(args.base_result_path),
         device=dev)
     return params, state, args.end_tau
 
@@ -688,14 +863,15 @@ def run_sample(args, domain: str, sample, save_dir: str, device=None,
     from reart_tpu_torch.models.kinematic import kinematic_forward
     from reart_tpu_torch.train import fit_base, fit_kinematic
 
+    _not_ported_flags(args)
     dev = resolve_device(device)
     os.makedirs(save_dir, exist_ok=True)
     cano_pc = torch.as_tensor(sample["cano_pc"], dtype=torch.float32,
                               device=dev)
     pc_list = torch.as_tensor(sample["pc_list"], dtype=torch.float32,
                               device=dev)
-    flow_ctx = setup_flow(args, sample, dev)
-    cfg = fit_config(args)
+    flow_ctx = setup_flow(args, sample, dev, domain)
+    cfg = fit_config(args, domain)
     params, state, tau = _load_model(args, cano_pc, pc_list.shape[0], dev)
     shape = (cano_pc.shape[0], args.num_parts)
 
@@ -736,6 +912,17 @@ def run_sample(args, domain: str, sample, save_dir: str, device=None,
                         state, save_dir, tau, device=dev)
 
 
+def _not_ported_flags(args) -> None:
+    """Raise for a flag whose feature is ported in slice 5."""
+    on = [f"--{k}" for k in ("auto_cano", "snapshot_metrics",
+                             "snapshot_graph", "save_vis", "batch_seq")
+          if getattr(args, k, None)]
+    if on:
+        raise NotImplementedError(
+            f"{', '.join(on)}: ported in slice 5 (canonical-frame "
+            f"selection, mid-fit snapshots, artifacts, batched sequences)")
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     np.random.seed(args.manual_seed)
@@ -743,8 +930,11 @@ def main(argv=None):
     if args.domain == "corr":
         return run_train_corr(args, device)
 
-    sample = dataset_sample(load_dataset(args))
-    seq_name = args.seq_path.rstrip("/").split("/")[-1]
+    _not_ported_flags(args)
+    sapien = args.domain == "sapien"
+    idx = args.sapien_idx if sapien else 0
+    sample = dataset_sample(load_dataset(args), idx)
+    seq_name = str(idx) if sapien else args.seq_path.rstrip("/").split("/")[-1]
     results = run_sample(args, args.domain, sample,
                          os.path.join(args.save_root, seq_name), device)
     if not args.silence:

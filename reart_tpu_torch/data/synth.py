@@ -15,10 +15,17 @@ identity), `cano_idx` and `novel_pose_list` (poses outside the sequence).
 `RobotSequence` reads, and `write_normalize_file` the normalisation pickle
 of the correspondence model (`--normalize_file`), so the `corr` subcommand
 can train on a scene made here.
+
+The other two domains get scenes on disk in their own formats:
+`make_sapien_scene` writes the part table as an mbs-sapien scene (views in
+a moving camera's frame, a GT flow file for `--flow_file`), and
+`write_real_scene` an OBJ sequence of a body with a hinged flap and a
+slider, the scans of the `real` subcommand.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import pickle
 
@@ -225,3 +232,90 @@ def write_normalize_file(path: str, seq_dir: str, sample: dict) -> None:
     with open(path, "wb") as f:
         pickle.dump({seq_dir.rstrip("/").split("/")[-1]:
                      {"centroid": centroid, "scale": scale}}, f)
+
+
+def make_sapien_scene(root: str, n_views: int = 8, n_points: int = 4096,
+                      n_parts: int = 6, seed: int = 0,
+                      cam_rot: float = 0.06, cam_trans: float = 0.03) -> str:
+    """Write one mbs-sapien scene of the part table under `root` and return
+    root: <root>/meta.json {"test": [0]}; <root>/data/000000.npz with pc
+    (V, N, 3) float32 in each view's camera frame, segm (V, N) 1-based and
+    trans {"cam": [V 4x4], 1..P: [V 4x4]} (world-frame part motions);
+    <root>/flow.npz with the GT flow of consecutive views and confidence 1
+    (the `--flow_file` of the sapien subcommand).
+
+    n_parts (2..6) takes a prefix of the table (4 and more keep both
+    prismatic joints); every view observes the same volume-sampled points.
+    View v's camera is rotz(cam_rot * v) after a translation of
+    cam_trans * v along (+x, -y): the raw views are not aligned."""
+    assert 2 <= n_parts <= len(_PARTS)
+    os.makedirs(os.path.join(root, "data"), exist_ok=True)
+    rng = np.random.RandomState(seed)
+    n_per = n_points // n_parts
+    clouds, seg = [], []
+    for pid, (lo, hi, _, _) in enumerate(_PARTS[:n_parts]):
+        n = n_per if pid else n_points - n_per * (n_parts - 1)
+        clouds.append(rng.uniform(lo, hi, (n, 3)))
+        seg.append(np.full(n, pid + 1))
+    cano = np.concatenate(clouds).astype(np.float64)
+    segm1 = np.concatenate(seg)
+
+    pcs, segms = [], []
+    trans = {"cam": [], **{p: [] for p in range(1, n_parts + 1)}}
+    homo = np.concatenate([cano, np.ones((len(cano), 1))], 1)
+    for v in range(n_views):
+        cam = _rotz4(cam_rot * v) @ _trans4([cam_trans * v,
+                                             -cam_trans * v, 0.0])
+        trans["cam"].append(cam)
+        world = homo.copy()
+        for pid, (_, _, kind, param) in enumerate(_PARTS[:n_parts]):
+            m = _part_pose(kind, param, v)
+            trans[pid + 1].append(m)
+            sel = segm1 == pid + 1
+            world[sel] = homo[sel] @ m.T
+        pcs.append((world @ np.linalg.inv(cam).T)[:, :3].astype(np.float32))
+        segms.append(segm1)
+    np.savez(os.path.join(root, "data", "000000.npz"), pc=np.stack(pcs),
+             segm=np.stack(segms), trans=np.asarray(trans, dtype=object))
+    with open(os.path.join(root, "meta.json"), "w") as f:
+        json.dump({"test": [0]}, f)
+    flow = (np.stack(pcs)[1:] - np.stack(pcs)[:-1]).astype(np.float32)
+    np.savez(os.path.join(root, "flow.npz"), flow=flow,
+             conf=np.ones(flow.shape[:2], np.float32))
+    return root
+
+
+def _box_mesh(lo, hi):
+    """The 8 corners and 12 outward triangles of an axis-aligned box."""
+    (x0, y0, z0), (x1, y1, z1) = lo, hi
+    corners = np.array([[x0, y0, z0], [x1, y0, z0], [x1, y1, z0],
+                        [x0, y1, z0], [x0, y0, z1], [x1, y0, z1],
+                        [x1, y1, z1], [x0, y1, z1]], float)
+    faces = np.array([[0, 2, 1], [0, 3, 2], [4, 5, 6], [4, 6, 7],
+                      [0, 1, 5], [0, 5, 4], [2, 3, 7], [2, 7, 6],
+                      [1, 2, 6], [1, 6, 5], [3, 0, 4], [3, 4, 7]])
+    return corners, faces
+
+
+def write_real_scene(out_dir: str, n_frames: int = 6) -> str:
+    """Write a real-scan sequence, `scan_{i}.obj` for i < n_frames: a body
+    box, a flap hinged about y at its near edge (0.22 rad a frame) and a
+    slider moving along +x (0.12 a frame); returns out_dir. The geometry of
+    scripts/make_real_scene.py."""
+    os.makedirs(out_dir, exist_ok=True)
+    body_v, body_f = _box_mesh((-0.5, -0.3, -0.25), (0.5, 0.3, 0.25))
+    flap_v, flap_f = _box_mesh((0.5, -0.25, 0.18), (1.05, 0.25, 0.26))
+    slider_v, slider_f = _box_mesh((-0.45, -0.28, -0.45), (0.35, 0.28, -0.27))
+    pivot = np.array([0.5, 0.0, 0.22])
+    for i in range(n_frames):
+        c, s = np.cos(0.22 * i), np.sin(0.22 * i)
+        rot = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])
+        verts = np.concatenate([body_v, (flap_v - pivot) @ rot.T + pivot,
+                                slider_v + np.array([0.12 * i, 0.0, 0.0])])
+        faces = np.concatenate([body_f, flap_f + len(body_v),
+                                slider_f + len(body_v) + len(flap_v)])
+        lines = [f"v {x:.6f} {y:.6f} {z:.6f}" for x, y, z in verts]
+        lines += [f"f {a + 1} {b + 1} {c + 1}" for a, b, c in faces]
+        with open(os.path.join(out_dir, f"scan_{i}.obj"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+    return out_dir

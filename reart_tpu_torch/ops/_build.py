@@ -65,6 +65,11 @@ SIGNATURES = {
     "reart_col_winner_max": (_P, _P, _I, _I, _I, _P, _P, _P),
     # xyz, new_xyz, B, N, S, r2, nsample, out, stream
     "reart_ball_query": (_P, _P, _I, _I, _I, _F, _I, _P, _P),
+    # src, tgt, price_in, B, N, M, w, tile, eps (host float*), n_eps,
+    # max_sweeps, carry, row_to_col, price_out, key, c2r, r2c, tile_flag,
+    # owned, stats, stream
+    "reart_auction_banded": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _I,
+                             _P, _P, _P, _P, _P, _P, _P, _P, _P),
 }
 
 

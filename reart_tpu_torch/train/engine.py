@@ -14,12 +14,21 @@ the JAX engine does, so both packages can be handed the same draws. The
 projection ("kinematic") fit runs the same loop on a KinematicModel with
 one Adam group and draws no noise.
 
+A LAP past 1024^2 on the card takes the banded points-level solve
+(ops/assignment.auction_lap_points) where `assign_band` admits it. In auto
+mode (-1) a quality guard solves the first problem banded and dense and
+keeps the band only if its matched cost is within `assign_band_guard`; it
+probes again every `assign_band_reprobe` iterations, at a LAP boundary, on
+that LAP's own clouds (the JAX engine probes on a forward with its base
+key; here the draw of that LAP's iteration). On the CPU every size goes
+dense.
+
 With `checkpoint_dir` the fit leaves `fit_state.pkl` there every
 `checkpoint_every` iterations (parameters, optimizer state, prices,
-history) and the next call resumes from it; the file goes when the fit
-completes. There are no dispatch chunks: a log line, a snapshot or a save
-falls on the first iteration boundary (in the assignment phase: the first
-LAP boundary) at or past each multiple.
+history, the guard's decision) and the next call resumes from it; the file
+goes when the fit completes. There are no dispatch chunks: a log line, a
+snapshot or a save falls on the first iteration boundary (in the
+assignment phase: the first LAP boundary) at or past each multiple.
 """
 
 from __future__ import annotations
@@ -45,7 +54,8 @@ from reart_tpu_torch.models.kinematic import (
     KinematicState,
     kinematic_forward,
 )
-from reart_tpu_torch.ops.assignment import auction_lap, require_dense
+from reart_tpu_torch.ops import assignment
+from reart_tpu_torch.ops.assignment import auction_lap
 from reart_tpu_torch.ops.distance import pairwise_sqdist
 from reart_tpu_torch.ops.interpolate import blend_anchor_motion_batched
 from reart_tpu_torch.ops.sampling import farthest_point_sample, index_points
@@ -87,13 +97,15 @@ class FitConfig:
     cano_idx: int = 0
     # auction sweep bound per epsilon phase
     assign_sweeps: int = 100
-    # column window of the banded LAP for problems past 1024^2: -1 scales it
-    # with the problem, 0 takes the dense path. The banded solve, its quality
-    # guard (banded against dense matched cost on the first problem,
-    # relative tolerance) and the guard's re-probe cadence are not ported:
-    # on a CUDA device such a LAP raises unless assign_band is 0
+    # column window of the banded points-level LAP for problems past 1024^2
+    # on the card: -1 scales it with the problem, 0 takes the dense path
     assign_band: int = -1
+    # auto mode only: solve the first real problem banded and dense and keep
+    # the band only if its matched cost is at most this fraction worse
+    # (0 disables the guard)
     assign_band_guard: float = 0.05
+    # re-run that probe every this many assignment-phase iterations, so a
+    # fit whose clouds align as it converges can switch back (0 = once)
     assign_band_reprobe: int = 1000
 
 
@@ -221,6 +233,8 @@ def fit(forward_fn: ForwardFn, model: torch.nn.Module, cfg: FitConfig,
                  if checkpoint_dir else None)
     resume_done = 0
     price = None
+    # the band guard's decision (None until made): a resumed fit reuses it
+    guard = {"band": None}
     if ckpt_path is not None and os.path.exists(ckpt_path):
         with open(ckpt_path, "rb") as f:
             saved = pickle.load(f)
@@ -231,6 +245,7 @@ def fit(forward_fn: ForwardFn, model: torch.nn.Module, cfg: FitConfig,
             price = torch.as_tensor(saved["price"], device=dev)
         for k, v in saved["history"].items():
             history[k][:resume_done] = torch.as_tensor(v, device=dev)
+        guard["band"] = saved.get("guard_band")
         print(f"[fit] resuming from iteration {resume_done}", flush=True)
         if noise is not None:
             for it in range(resume_done):
@@ -269,6 +284,7 @@ def fit(forward_fn: ForwardFn, model: torch.nn.Module, cfg: FitConfig,
                 "price": None if price is None else tree_to_numpy(price),
                 "history": {k: tree_to_numpy(v[:done])
                             for k, v in history.items()},
+                "guard_band": guard["band"],
             }
             tmp = ckpt_path + ".tmp"
             with open(tmp, "wb") as f:
@@ -304,11 +320,22 @@ def fit(forward_fn: ForwardFn, model: torch.nn.Module, cfg: FitConfig,
     if use_assign:
         actx = build_assign_context(cano_pc, pc_list, cfg.downsample)
         num_fps = actx.pc_tgt.shape[1]
-        require_dense(actx.pc_tgt, num_fps, num_fps, cfg.assign_band)
         if price is None:
             price = torch.zeros(actx.pc_tgt.shape[:2], dtype=torch.float32,
                                 device=dev)
+        band = assignment.resolve_band(cfg.assign_band, num_fps)
+        guard_active = (cfg.assign_band == -1 and cfg.assign_band_guard > 0
+                        and assignment.banded_points_available(
+                            num_fps, num_fps, band, dev))
         gap = max(1, cfg.assign_gap)
+        rp = max(cfg.assign_band_reprobe, 0)
+
+        def probe(pc_src, price):
+            cb, cd = _band_guard_probe(pc_src, actx.pc_tgt, price, band,
+                                       cfg.assign_sweeps)
+            rel = cb / max(cd, 1e-12) - 1.0
+            return (band if rel <= cfg.assign_band_guard else 0), rel
+
         # a save falls on a LAP boundary, so a resumed fit starts on one
         for it0 in range(max(n_recon, resume_done), cfg.n_iter, gap):
             g0 = draw(it0)
@@ -316,13 +343,31 @@ def fit(forward_fn: ForwardFn, model: torch.nn.Module, cfg: FitConfig,
                 pc_trans_list, _, _ = forward_fn(model, cano_pc, g0,
                                                  tau_fn(it0 + 1))
                 pc_src = pc_trans_list[:, actx.src_idx]
-                cost = torch.sqrt(pairwise_sqdist(pc_src, actx.pc_tgt))
+                if guard_active and guard["band"] is None:
+                    guard["band"], rel = probe(pc_src, price)
+                    if guard["band"] == 0:
+                        print(f"[fit] banded-LAP guard: banded matched cost "
+                              f"{rel:+.1%} vs dense on the first-solve "
+                              f"clouds (> +{cfg.assign_band_guard:.0%}) — "
+                              f"dense solver", flush=True)
+                elif (guard_active and rp > 0 and it0 > n_recon
+                      and (it0 - n_recon) // rp
+                      != (it0 - n_recon - gap) // rp):
+                    # the mid-fit re-probe: clouds often align as the fit
+                    # converges, when the band becomes safe again
+                    new_band, rel = probe(pc_src, price)
+                    if new_band != guard["band"]:
+                        which = "banded" if new_band else "dense"
+                        print(f"[fit] banded-LAP guard re-probe at iteration "
+                              f"{it0}: matched cost {rel:+.1%} vs dense — "
+                              f"switching to the {which} solver", flush=True)
+                        guard["band"] = new_band
                 # warm-started prices: between solves the clouds barely
                 # move, so a solve converges in a few bounded sweeps
-                perm, price = auction_lap(
-                    cost, eps_min=1e-4, num_scales=2, scale_factor=50.0,
-                    max_sweeps=cfg.assign_sweeps, price=price,
-                    return_price=True)
+                perm, price = _solve_assignment(
+                    pc_src, actx.pc_tgt, price,
+                    guard["band"] if guard_active else band,
+                    cfg.assign_sweeps)
             end = min(it0 + gap, cfg.n_iter)
             for it in range(it0, end):
                 step(it, g0 if it == it0 else draw(it), perm, actx)
@@ -330,6 +375,42 @@ def fit(forward_fn: ForwardFn, model: torch.nn.Module, cfg: FitConfig,
     if ckpt_path is not None and os.path.exists(ckpt_path):
         os.remove(ckpt_path)  # the fit completed: nothing to resume
     return model, history
+
+
+def _solve_assignment(pc_src, pc_tgt, price, band: int, sweeps: int):
+    """One LAP of the assignment phase, warm-started from `price`: the
+    banded points-level solve where `band` admits it on this device (never
+    on the CPU), else the dense auction of the distance matrix."""
+    n, m = pc_src.shape[1], pc_tgt.shape[1]
+    if assignment.banded_points_available(n, m, band, pc_src.device):
+        return assignment.auction_lap_points(
+            pc_src, pc_tgt, band=band, eps_min=1e-4, num_scales=2,
+            scale_factor=50.0, max_sweeps=sweeps, price=price,
+            return_price=True)
+    cost = torch.sqrt(pairwise_sqdist(pc_src, pc_tgt))
+    return auction_lap(cost, eps_min=1e-4, num_scales=2, scale_factor=50.0,
+                       max_sweeps=sweeps, price=price, return_price=True)
+
+
+def _band_guard_probe(pc_src, pc_tgt, price, band: int, sweeps: int):
+    """The band guard's evidence: the same assignment problem solved banded
+    and dense (warm from the same prices), each matching's summed euclidean
+    cost -> (banded, dense) floats. The dense (B, N, M) cost matrix is built
+    once here. On aligned clouds the banded matching is as close to the
+    optimum as the dense sweep-bounded one; where the clouds' curve orders
+    disagree it is far worse, which is what this measures."""
+    r2c_b = assignment.auction_lap_points(
+        pc_src, pc_tgt, band=band, eps_min=1e-4, num_scales=2,
+        scale_factor=50.0, max_sweeps=sweeps, price=price)
+    cost = torch.sqrt(pairwise_sqdist(pc_src, pc_tgt))
+    r2c_d = auction_lap(cost, eps_min=1e-4, num_scales=2, scale_factor=50.0,
+                        max_sweeps=sweeps, price=price)
+
+    def matched(r2c):
+        tgt = torch.gather(pc_tgt, 1, r2c[..., None].expand(-1, -1, 3))
+        return float(torch.linalg.norm(pc_src - tgt, dim=-1).sum())
+
+    return matched(r2c_b), matched(r2c_d)
 
 
 def fit_base(params: BaseModel, cfg: FitConfig, cano_pc, pc_list,

@@ -25,6 +25,8 @@ from reart_tpu.ops.assignment import auction_lap as jax_auction_lap
 from reart_tpu_torch.ops import cuda_auction
 from reart_tpu_torch.ops.assignment import assignment_cost, auction_lap
 
+torch.set_num_threads(1)
+
 
 def _jax_lap(cost, resident, price=None, **kw):
     args = dict(kw, return_price=True, use_resident=resident)
@@ -259,23 +261,30 @@ def test_auction_lap_picks_its_solver_by_size(monkeypatch):
 def test_banded_request_by_device():
     """What the port does with a LAP past 1024^2: dense on the CPU whatever
     `assign_band` says (the JAX package's banded path needs the TPU); the
-    same request for a CUDA device is turned away unless assign_band is 0,
-    which is the only value the JAX package resolves to "no band"."""
+    same request on a CUDA device takes the banded solve unless
+    assign_band is 0, which is the only value the JAX package resolves to
+    "no band", as it does on the TPU."""
     from reart_tpu.ops.assignment import resolve_band as jax_resolve_band
-    from reart_tpu_torch.ops.assignment import require_dense
+    from reart_tpu_torch.ops.assignment import (
+        banded_points_available,
+        resolve_band,
+    )
 
     for n in (2048, 4096, 8192):
-        assert jax_resolve_band(0, n) == 0
-        assert jax_resolve_band(-1, n) > 0 and jax_resolve_band(512, n) > 0
-    cpu = torch.zeros(1)
+        assert jax_resolve_band(0, n) == resolve_band(0, n) == 0
+        assert jax_resolve_band(-1, n) == resolve_band(-1, n) > 0
+        assert resolve_band(512, n) == 512
     for band in (-1, 0, 512):
-        require_dense(cpu, 2048, 2048, band)  # no raise on the CPU
-    on_card = types.SimpleNamespace(device=torch.device("cuda"))
-    require_dense(on_card, 2048, 2048, 0)
-    require_dense(on_card, 1024, 1024, -1)  # within 1024^2: never banded
+        assert not banded_points_available(2048, 2048,
+                                           resolve_band(band, 2048), "cpu")
+    cuda = torch.device("cuda")
+    assert not banded_points_available(2048, 2048, 0, cuda)
+    # within 1024^2: never banded
+    assert not banded_points_available(1024, 1024, resolve_band(-1, 1024),
+                                       cuda)
     for band in (-1, 512):
-        with pytest.raises(NotImplementedError, match="slice 4"):
-            require_dense(on_card, 2048, 2048, band)
+        assert banded_points_available(2048, 2048, resolve_band(band, 2048),
+                                       cuda)
 
 
 def test_streamed_wrapper_checks_inputs():

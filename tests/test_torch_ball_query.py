@@ -23,6 +23,8 @@ from reart_tpu_torch.ops import cuda_nn
 from reart_tpu_torch.ops.interpolate import three_interpolate
 from reart_tpu_torch.ops.sampling import ball_query
 
+torch.set_num_threads(1)
+
 
 def _t(x):
     return torch.from_numpy(np.ascontiguousarray(x))

@@ -33,6 +33,8 @@ from reart_tpu_torch.models import (
 )
 from reart_tpu_torch.train.schedules import tau_cosine
 
+torch.set_num_threads(1)
+
 N, P, T1 = 200, 5, 3
 
 

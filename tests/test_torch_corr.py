@@ -24,6 +24,8 @@ from reart_tpu_torch.data.synth import make_toy_robot_sample
 from reart_tpu_torch.models import pointnet2 as tpn
 from reart_tpu_torch.train import corr as tcorr
 
+torch.set_num_threads(1)
+
 N0, N, BATCH = 360, 128, 2
 
 

@@ -12,6 +12,8 @@ from reart_tpu import cli as jax_cli
 from reart_tpu_torch import cli
 from reart_tpu_torch.models import pointnet2 as tpn
 
+torch.set_num_threads(1)
+
 
 def _norm_file(tmp_path, robot_dir):
     cat = os.path.basename(robot_dir.rstrip("/"))
@@ -33,7 +35,7 @@ def test_corr_chain_on_the_toy_robot(robot_dir, tmp_path):
     out = cli.main([
         "corr", "--device", "cpu", "--data_domain", "robot", "--seq_path",
         robot_dir, "--normalize_file", norm_path, "--num_points", "360",
-        "--steps", "3", "--batch", "2", "--train_points", "128",
+        "--steps", "1", "--batch", "2", "--train_points", "128",
         "--dispatch_chunk", "2", "--save_path", ckpt_path, "--save_torch",
         torch_path])
     assert os.path.exists(ckpt_path) and os.path.exists(torch_path)

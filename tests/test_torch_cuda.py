@@ -16,6 +16,8 @@ import torch
 
 from reart_tpu_torch.ops import cuda_auction, cuda_fps, cuda_nn
 
+torch.set_num_threads(1)
+
 pytestmark = pytest.mark.cuda
 TOL = dict(rtol=1e-6, atol=1e-6)
 
@@ -312,9 +314,9 @@ def test_fit_kinematic_on_card_matches_cpu(cuda):
 
 @pytest.mark.parametrize("model", ["base", "kinematic"])
 def test_banded_request_on_card_is_turned_away(cuda, model):
-    """A LAP past 1024^2 (N = 2304, downsample 2: 1152^2) with assign_band
-    other than 0 raises naming its slice; with 0 the fit runs, through the
-    streamed kernel."""
+    """A LAP past 1024^2 (N = 2304, downsample 2: 1152^2) takes the banded
+    solve with assign_band -1 (auto: a window of 512) or 512 and the guard
+    off, and the streamed dense kernel with 0; nothing is turned away."""
     from reart_tpu_torch.models import BaseModel, KinematicModel
     from reart_tpu_torch.models.kinematic import make_kinematic_state
     from reart_tpu_torch.train import FitConfig, fit_base, fit_kinematic
@@ -323,7 +325,7 @@ def test_banded_request_on_card_is_turned_away(cuda, model):
     cano = rng.randn(2304, 3).astype(np.float32)
     pcs = np.stack([cano + 0.02, cano + 0.04])
     kw = dict(n_iter=3, assign_iter=1, assign_gap=1, downsample=2,
-              use_assign_loss=True)
+              use_assign_loss=True, assign_band_guard=0.0)
 
     def run(band):
         cfg = FitConfig(assign_band=band, **kw)
@@ -337,12 +339,111 @@ def test_banded_request_on_card_is_turned_away(cuda, model):
         return fit_kinematic(params, state, cfg, pcs)
 
     for band in (-1, 512):
-        with pytest.raises(NotImplementedError, match="slice 4"):
-            run(band)
+        before = cuda_auction.auction_solve_banded.launches
+        _, hist = run(band)
+        assert cuda_auction.auction_solve_banded.launches == before + 2
+        assert torch.isfinite(hist["total_loss"]).all()
     before = cuda_auction.auction_solve_resident_hbm.launches
     _, hist = run(0)
     assert cuda_auction.auction_solve_resident_hbm.launches == before + 2
     assert torch.isfinite(hist["total_loss"]).all()
+
+
+def _sorted_clouds(b, n, noise, seed):
+    """Clouds sorted along the Hilbert curve, as the banded solve takes
+    them."""
+    from reart_tpu_torch.ops.assignment import _curve_sort
+
+    rng = np.random.RandomState(seed)
+    src = rng.randn(b, n, 3).astype(np.float32)
+    tgt = (src + noise * rng.randn(b, n, 3)).astype(np.float32)
+    s, t, _, _ = _curve_sort(torch.from_numpy(src), torch.from_numpy(tgt),
+                             1024, None)
+    return s, t
+
+
+def _banded_same(cuda, src, tgt, price, eps, sweeps, w, tile=None,
+                 carry=False, on_card=False):
+    """Kernel against its plain version (on the CPU, or on the card for
+    large problems): row_to_col, prices and stats equal."""
+    got = cuda_auction.auction_solve_banded(
+        src.to(cuda), tgt.to(cuda), price.to(cuda), eps, sweeps, w, tile,
+        carry, return_stats=True)
+    where = cuda if on_card else "cpu"
+    ref = cuda_auction.auction_solve_banded_plain(
+        src.to(where), tgt.to(where), price.to(where), eps, sweeps, w, tile,
+        carry, return_stats=True)
+    for i, (g, r) in enumerate(zip(got, ref)):
+        assert torch.equal(g.cpu(), r.cpu()), f"output {i} differs"
+    return got
+
+
+@pytest.mark.parametrize("b,n,w,tile,sweeps,carry", [
+    (2, 64, 64, 8, 2000, False),      # full band, tile 8
+    (2, 64, 64, 8, 2000, True),
+    (1, 256, 128, None, 100, False),  # B = 1
+    (9, 512, 128, 64, 100, False),    # B = 9
+    (3, 384, 128, 48, 100, True),     # carry on, tiles of 48
+    (2, 96, 40, 8, 30, False),        # unaligned window
+])
+def test_banded_auction_sizes(cuda, b, n, w, tile, sweeps, carry):
+    src, tgt = _sorted_clouds(b, n, 0.05, n + b)
+    eps = (1e-2, 1e-3, 1e-4) if carry else (5e-3, 1e-4)
+    _banded_same(cuda, src, tgt, torch.zeros(b, n), eps, sweeps, w, tile,
+                 carry)
+
+
+def test_banded_auction_bound_fallback_and_warm(cuda):
+    """max_sweeps 1 and 0 leave rows to the in-band fallback; a converged
+    warm start carried over a repeated epsilon runs no sweep."""
+    src, tgt = _sorted_clouds(2, 256, 1.0, 1)
+    zero = torch.zeros(2, 256)
+    for sweeps in (0, 1):
+        r, _, st = _banded_same(cuda, src, tgt, zero, (1e-4,), sweeps, 128)
+        assert int(st[..., 0].max()) == sweeps
+    # a full band converges (a narrow one can leave rows that never find a
+    # free column in their window: its phases run to the bound)
+    src, tgt = _sorted_clouds(2, 256, 0.02, 2)
+    _, p, st = _banded_same(cuda, src, tgt, zero, (5e-3, 1e-4), 2000, 256)
+    assert int(st[..., 0].max()) < 2000
+    _, _, st = _banded_same(cuda, src, tgt, p.cpu(), (1e-4, 1e-4), 2000, 256,
+                            carry=True)
+    assert int(st[:, 1, 0].max()) == 0
+
+
+def test_banded_auction_large_and_views(cuda):
+    """(2, 2048, 2048), w 512 against the plain version on the card; a
+    non-contiguous input (the wrapper copies it) gives the same."""
+    src, tgt = _sorted_clouds(2, 2048, 0.02, 3)
+    price = torch.from_numpy(
+        np.random.RandomState(4).rand(2, 2048).astype(np.float32) * 0.01)
+    got = _banded_same(cuda, src, tgt, price, (5e-3, 1e-4), 100, 512,
+                       on_card=True)
+    wide = torch.zeros(2, 2048, 6)
+    wide[..., ::2] = src
+    view = wide.to(cuda)[..., ::2]
+    assert not view.is_contiguous()
+    again = cuda_auction.auction_solve_banded(
+        view, tgt.to(cuda), price.to(cuda), (5e-3, 1e-4), 100, 512,
+        return_stats=True)
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+
+
+def test_auction_lap_points_on_card_matches_cpu(cuda):
+    from reart_tpu_torch.ops.assignment import auction_lap_points
+
+    rng = np.random.RandomState(5)
+    src = torch.from_numpy(rng.randn(3, 512, 3).astype(np.float32))
+    tgt = src[:, torch.from_numpy(rng.permutation(512))] + 0.01
+    price = torch.from_numpy(rng.rand(3, 512).astype(np.float32) * 0.01)
+    for rec in (False, True):
+        kw = dict(band=128, price=price, return_price=True, nn_recenter=rec)
+        got = auction_lap_points(src.to(cuda), tgt.to(cuda),
+                                 **dict(kw, price=price.to(cuda)))
+        ref = auction_lap_points(src, tgt, **kw)
+        for g, r in zip(got, ref):
+            assert torch.equal(g.cpu(), r)
 
 
 def test_chamfer_grads_on_card_match_cpu(cuda):

@@ -5,6 +5,7 @@ line on the toy robot sequence, both stages; a fit that is killed and
 resumed; and the result files and checkpoints read across the two
 packages."""
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -33,6 +34,8 @@ from reart_tpu_torch.interop import (
 from reart_tpu_torch.models.base_model import base_forward
 from reart_tpu_torch.models.kinematic import kinematic_forward
 from reart_tpu_torch.train import FitConfig, FlowContext, fit_kinematic
+
+torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -218,17 +221,19 @@ def test_parts_not_ported_yet_say_so(tmp_path):
     args = cli.build_parser().parse_args(base + ["--resume", zipped])
     with pytest.raises(NotImplementedError, match="slice 5"):
         cli.run_sample(args, "robot", sample, str(tmp_path), device="cpu")
-    # the corr trainer's other domains
-    for domain in ("sapien", "real"):
-        args = cli.build_parser().parse_args(
-            ["corr", "--device", "cpu", "--data_domain", domain])
-        with pytest.raises(NotImplementedError, match="slice 4"):
-            cli.run_train_corr(args, "cpu")
+    # the flags of slice 5, in every domain
     args = cli.build_parser().parse_args(base)
     assert cli.setup_flow(args, sample, "cpu") is None
-    with pytest.raises(NotImplementedError):
-        cli.finalize(args, "sapien", sample, None, None, None, None,
-                     str(tmp_path), 1.0, device="cpu")
+    for domain, flag in (("robot", ["--auto_cano"]),
+                         ("real", ["--snapshot_metrics"]),
+                         ("robot", ["--save_vis"]),
+                         ("sapien", ["--batch_seq", "0,1"])):
+        args = cli.build_parser().parse_args(
+            [domain, "--device", "cpu", *flag])
+        with pytest.raises(NotImplementedError, match="slice 5"):
+            cli.main([domain, "--device", "cpu", *flag])
+        with pytest.raises(NotImplementedError, match="slice 5"):
+            cli.run_sample(args, domain, sample, str(tmp_path), device="cpu")
     cfg = cli.fit_config(cli.build_parser().parse_args(
         base + ["--n_iter", "7", "--assign_sweeps", "9"]))
     assert (cfg.n_iter, cfg.assign_sweeps, cfg.always_recon) == (7, 9, False)
@@ -238,6 +243,19 @@ def test_parts_not_ported_yet_say_so(tmp_path):
     assert (cfg.assign_band, cfg.assign_band_guard, cfg.assign_band_reprobe) \
         == (jcfg.assign_band, jcfg.assign_band_guard,
             jcfg.assign_band_reprobe) == (-1, 0.05, 1000)
+    # every domain's flags shared with the JAX package carry its defaults
+    for domain in ("robot", "sapien", "real", "corr"):
+        ours = vars(cli.build_parser().parse_args([domain]))
+        theirs = vars(jax_cli.build_parser().parse_args([domain]))
+        shared = sorted(set(ours) & set(theirs))
+        assert len(shared) > 15
+        assert {k: ours[k] for k in shared} == {k: theirs[k] for k in shared}
+        if domain != "corr":
+            tcfg = cli.fit_config(cli.build_parser().parse_args([domain]))
+            jcfg = jax_cli.fit_config(
+                jax_cli.build_parser().parse_args([domain]), domain)
+            for f in dataclasses.fields(tcfg):
+                assert getattr(tcfg, f.name) == getattr(jcfg, f.name), f.name
 
 
 def _base_result(sample, seed=0):
@@ -458,7 +476,9 @@ def test_command_line_imports_no_jax_and_defaults_to_the_card():
         "import reart_tpu_torch.ik, reart_tpu_torch.models.kinematic, "
         "reart_tpu_torch.graph.kinematics, reart_tpu_torch.flow, "
         "reart_tpu_torch.models.pointnet2, reart_tpu_torch.train.corr, "
-        "reart_tpu_torch.interop; "
+        "reart_tpu_torch.interop, reart_tpu_torch.sapien_eval, "
+        "reart_tpu_torch.data.sapien, reart_tpu_torch.data.real, "
+        "reart_tpu_torch.data.mesh; "
         "bad = [m for m in ('jax', 'optax', 'reart_tpu', 'networkx') "
         "if m in sys.modules]; assert not bad, bad; "
         "args = reart_tpu_torch.cli.build_parser().parse_args(['robot']); "

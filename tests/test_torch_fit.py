@@ -31,6 +31,8 @@ from reart_tpu_torch.train import (
     fit_base,
 )
 
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N, T, P = 256, 4, 3
 FIT = dict(n_iter=12, assign_iter=6, assign_gap=3, downsample=2,

@@ -22,6 +22,8 @@ from reart_tpu_torch import flow as tflow
 from reart_tpu_torch.ops.interpolate import blend_anchor_motion_batched
 from reart_tpu_torch.train.engine import FAR, FlowContext
 
+torch.set_num_threads(1)
+
 TOL = dict(rtol=1e-5, atol=1e-6)
 RATIO_TOL = dict(rtol=3e-3, atol=1e-3)
 

@@ -20,6 +20,8 @@ from reart_tpu_torch.ops.sampling import (
     masked_farthest_point_sample,
 )
 
+torch.set_num_threads(1)
+
 B, N, NPOINT = 2, 600, 64
 
 

@@ -12,6 +12,8 @@ from reart_tpu import geometry as JG
 from reart_tpu.geometry import dq as JG_dq
 from reart_tpu_torch import geometry as TG
 
+torch.set_num_threads(1)
+
 # float32 elementwise chains; libm and XLA round sin/cos/atan2 differently
 TOL = dict(rtol=1e-5, atol=1e-6)
 

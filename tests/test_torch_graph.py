@@ -17,6 +17,8 @@ from reart_tpu_torch import graph as TGR
 from reart_tpu_torch.data.synth import make_robot_sample
 from reart_tpu_torch.models.base_model import _median, refine_seg_motion
 
+torch.set_num_threads(1)
+
 COST_TOL = dict(rtol=1e-4, atol=1e-5)
 
 

@@ -23,6 +23,8 @@ from reart_tpu_torch.interop import (
 )
 from reart_tpu_torch.models.kinematic import kinematic_forward
 
+torch.set_num_threads(1)
+
 GRADS = np.random.RandomState(0).randn(10, 2, 3).astype(np.float32) \
     * np.logspace(0, -2, 10, dtype=np.float32)[:, None, None]
 

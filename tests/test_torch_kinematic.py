@@ -38,6 +38,8 @@ from reart_tpu_torch.models.kinematic import (
 )
 from reart_tpu_torch.train import FitConfig, FlowContext, fit_kinematic
 
+torch.set_num_threads(1)
+
 TREES = {
     "chain": ([(1, 0), (2, 1), (3, 2)], 0),
     "star": ([(0, 2), (1, 2), (3, 2)], 2),

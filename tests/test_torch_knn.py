@@ -30,6 +30,8 @@ from reart_tpu_torch.ops.distance import (
 )
 from reart_tpu_torch.ops.interpolate import blend_anchor_motion
 
+torch.set_num_threads(1)
+
 # same diff^2 formula in both packages; a sum may differ by an ulp
 TOL = dict(rtol=1e-5, atol=1e-6)
 

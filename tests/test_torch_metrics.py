@@ -20,6 +20,8 @@ from reart_tpu_torch import metrics as TM
 from reart_tpu_torch.data.synth import make_robot_sample
 from reart_tpu_torch.native import lap_solve_batch, lap_solve_points
 
+torch.set_num_threads(1)
+
 TOL = dict(rtol=1e-4, atol=1e-6)
 
 

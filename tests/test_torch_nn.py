@@ -22,6 +22,8 @@ from reart_tpu_torch.ops.interpolate import (
     blend_anchor_motion_batched,
 )
 
+torch.set_num_threads(1)
+
 
 def _clouds(seed, b, n, m):
     rng = np.random.RandomState(seed)

@@ -21,6 +21,8 @@ from reart_tpu.models import pointnet2 as jpn
 from reart_tpu_torch import interop
 from reart_tpu_torch.models import pointnet2 as tpn
 
+torch.set_num_threads(1)
+
 B, N = 2, 600
 
 
