@@ -10,11 +10,15 @@ Phases, each of which raises on failure (exit code != 0):
              the build time and ptxas resource lines;
   3. kernels vs plain: each of the twelve kernels against its plain PyTorch
              version on the card, at the main paths' shapes plus ragged and
-             tie cases; indices and coordinates exact, floats within
-             FLOAT_TOL; ms of many launches per event pair (for the two
-             kernels too small to fill the queue: of a replayed CUDA graph
-             of many launches, which is their device time), and each
-             kernel's bound (the least time the card could take);
+             tie cases (for blend3 and nn1_bidir_coords also ties across
+             their slices and tiles, sizes past them, M = 3); indices and
+             coordinates exact, floats within FLOAT_TOL; ms of many launches
+             per event pair (for the two kernels too small to fill the
+             queue: of a replayed CUDA graph of many launches, which is
+             their device time), and each kernel's bound (the least time the
+             card could take); the Chamfer backward: two identical calls
+             bit-equal, its scatter equal to the CPU's index_add_, its time
+             against the index_add_ scatter;
   4. reference: a toy fit on the card against the same fit on the CPU; a
              3-part toy robot through the whole relaxation run (fit, seg
              refine, graph stage, metrics, TED, energy, result files) on the
@@ -28,7 +32,13 @@ Phases, each of which raises on failure (exit code != 0):
              (FPS and ball-query indices exact, features within
              BACKBONE_TOL);
   5. the fit: fit_base at nao scale (bench.py's synthetic sequence and
-             config, 60 iterations), with every kernel's launch count;
+             config, 60 iterations), with every kernel's launch count; a
+             second run from the same seeds must give the same history bit
+             for bit, and takes torch.profiler windows over 10 recon and 10
+             assign iterations (device busy and idle share, device ms an
+             iteration, blend3's and nn1_bidir_coords' ms an iteration);
+             then an operator census of one iteration of each phase under
+             torch.use_deterministic_algorithms(True, warn_only=True);
   6. the run: the relaxation run at full width (T=10, N=4096, 20 parts) on
              an articulated scene made in memory, with every kernel's
              launch count and the seconds of each finalize stage;
@@ -51,9 +61,12 @@ Phases, each of which raises on failure (exit code != 0):
  10. the sapien chain at full width: make_sapien_scene (8 views x 4096
              points, 6 parts), the relaxation run from its --flow_file at
              --downsample 1 ((7, 4096, 4096) LAPs through the banded kernel,
-             the band guard's probes and one re-probe printed), then the
-             projection run; full_flow_epe, per- and multi-scan RI, seconds
-             per stage and launch counts of each;
+             the band guard's probes and one re-probe printed, each
+             joint's largest relative rotation printed and the result.pkl
+             copied to --keep_dir when one is given), then the projection
+             run; full_flow_epe,
+             per- and multi-scan RI, seconds per stage and launch counts of
+             each;
  11. the real chain at full width: write_real_scene (6 OBJ frames), `corr
              --data_domain real`, the relaxation run from its SMNN anchors
              (4096 points, --downsample 4) and the projection run with
@@ -65,9 +78,11 @@ The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}. Imports neither jax nor reart_tpu.
 """
 
+import argparse
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -291,7 +306,8 @@ def build_phase():
     log(f"build: {path} in {seconds:.1f} s "
         f"({'built now' if seconds else 'already built'})")
     for line in build_log.splitlines():
-        if "Compiling entry" in line or "registers" in line:
+        if ("Compiling entry" in line or "registers" in line
+                or "spill" in line):
             log(f"  ptxas: {line.strip()}")
     from reart_tpu_torch import native
 
@@ -311,6 +327,69 @@ def sequence(dev):
     return t(cano), t(pcs), t(complete)
 
 
+def index_add_rows(idx, vals, n):
+    """The Chamfer backward's scatter that scatter_rows replaced: index_add_,
+    float atomics in arrival order on the card. Timed beside scatter_rows."""
+    b, c = idx.shape[0], vals.shape[-1]
+    offs = torch.arange(b, device=idx.device)[:, None] * n
+    out = torch.zeros((b * n, c), dtype=vals.dtype, device=vals.device)
+    out.index_add_(0, (idx + offs).reshape(-1), vals.reshape(-1, c))
+    return out.reshape(b, n, c)
+
+
+def chamfer_backward_check(dev, randn, pred, obs):
+    """The Chamfer backward on the card: two identical calls give the same
+    bits, with many duplicate winners (a sparse source against a dense
+    target: each source point is the reverse winner of 16 target points on
+    average, so its gradient is a long sum); `scatter_rows` on the card
+    equals index_add_ on the CPU on the same inputs; and the time of the
+    fit's recon-loss backward with `scatter_rows` and with index_add_, in
+    turns (new, old, old, new)."""
+    from reart_tpu_torch.ops import distance
+
+    sparse, dense = randn(9, 256, 3), randn(9, 4096, 3)
+    grads = []
+    for _ in range(2):
+        s = sparse.clone().requires_grad_(True)
+        t = dense.clone().requires_grad_(True)
+        distance.chamfer_loss(s, t).backward()
+        grads.append((s.grad, t.grad))
+    for name, a, b in zip(("source", "target"), *grads):
+        if not torch.equal(a, b):
+            raise AssertionError(f"Chamfer backward: two identical calls "
+                                 f"give other {name} gradients "
+                                 f"({int((a != b).sum())} entries)")
+    idx = torch.randint(0, 256, (9, 4096), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(1))
+    idx[:, :2048] = 3  # half of each element into one row
+    vals = randn(9, 4096, 3) * 10.0 ** (6 * randn(9, 4096, 1).clamp(-1, 1))
+    card = distance.scatter_rows(idx, vals, 256).cpu()
+    cpu = index_add_rows(idx.cpu(), vals.cpu(), 256)
+    if not torch.equal(card, cpu):
+        raise AssertionError("scatter_rows on the card differs from "
+                             "index_add_ on the CPU")
+    p = pred.clone().requires_grad_(True)
+    loss = distance.chamfer_loss(p, obs)
+
+    def backward():
+        torch.autograd.grad(loss, p, retain_graph=True)
+
+    times = {"scatter_rows": [], "index_add_": []}
+    for which in ("scatter_rows", "index_add_", "index_add_", "scatter_rows"):
+        orig = distance.scatter_rows
+        if which == "index_add_":
+            distance.scatter_rows = index_add_rows
+        try:
+            times[which].append(many_ms(backward))
+        finally:
+            distance.scatter_rows = orig
+    log("Chamfer backward: two identical calls bit-equal (sparse (9, 256) "
+        "vs dense (9, 4096)); scatter_rows on the card equals index_add_ on "
+        "the CPU; the recon loss's backward at (9, 4096, 4096) "
+        + ", ".join(f"{k} {' '.join(f'{t:.4f}' for t in v)} ms"
+                    for k, v in times.items()))
+
+
 def kernel_phase(dev):
     from reart_tpu_torch.ops import cuda_auction, cuda_fps, cuda_nn
     from reart_tpu_torch.ops.distance import pairwise_sqdist
@@ -325,8 +404,15 @@ def kernel_phase(dev):
 
     # row 5: Chamfer 1-NN, predicted clouds vs observed frames
     src = pred_clouds = (pcs + 0.01 * randn(9, 4096, 3)).contiguous()
+    # 100 points repeated, the target shifted by 7: exact ties straddle the
+    # kernel's 128-row and 512-column tiles both ways
+    rep = randn(1, 100, 3).repeat(9, 42, 1)
     cases = [("main (9, 4096, 4096)", src, pcs),
-             ("ragged (2, 300, 1500)", randn(2, 300, 3), randn(2, 1500, 3))]
+             ("ragged (2, 300, 1500)", randn(2, 300, 3), randn(2, 1500, 3)),
+             ("ties across tiles (9, 4096, 4096)",
+              rep[:, :4096].contiguous(), rep[:, 7:4103].contiguous()),
+             ("past the tiles (3, 4097, 1000)", randn(3, 4097, 3),
+              randn(3, 1000, 3))]
     err = 0.0
     for label, a, b in cases:
         got = cuda_nn.nn1_bidir_coords(a, b)
@@ -343,6 +429,7 @@ def kernel_phase(dev):
         plain_ms=median_ms(lambda: cuda_nn.nn1_bidir_coords_plain(src, pcs),
                            5),
         **bound(PAIR_FLOPS * 9 * 4096 * 4096, (src, pcs, *out)))
+    chamfer_backward_check(dev, randn, src, pcs)
 
     # row 6: flow blend, predicted source frames vs FlowContext anchors
     query = (complete[:-1] + 0.01 * randn(9, 4096, 3)).contiguous()
@@ -352,12 +439,24 @@ def kernel_phase(dev):
     padded[:, 3000:] = 1e6  # FlowContext's FAR padding, zero flow
     pflows = flows.clone()
     pflows[:, 3000:] = 0.0
+    # 64 points repeated: each query's 3 nearest are copies 64 apart, in
+    # different slices of the kernel
+    tied = randn(1, 64, 3).repeat(9, 64, 1).contiguous()
     cases = [("main (9, 4096, 4096)", query, anchors, flows),
              ("FAR-padded (9, 4096, 4096)", query, padded, pflows),
              ("ragged (2, 300, 1500)", randn(2, 300, 3), randn(2, 1500, 3),
-              0.05 * randn(2, 1500, 3))]
+              0.05 * randn(2, 1500, 3)),
+             ("ties across slices (9, 4096, 4096)", query, tied,
+              0.05 * randn(9, 4096, 3)),
+             ("M past the slices (9, 4096, 4093)", query,
+              anchors[:, :4093].contiguous(), flows[:, :4093].contiguous()),
+             ("M = 3 (2, 257, 3)", randn(2, 257, 3), randn(2, 3, 3),
+              0.05 * randn(2, 3, 3))]
     err = 0.0
     for label, q, r, f in cases:
+        slices = cuda_nn.blend3_slices(q.shape[0], q.shape[1], r.shape[1],
+                                       torch.cuda.get_device_properties(
+                                           dev).multi_processor_count)
         got = cuda_nn.blend3(q, r, f)
         ref = cuda_nn.blend3_plain(q, r, f)
         err = max(err, check(f"blend3 {label}", got, ref, exact=set()))
@@ -365,7 +464,8 @@ def kernel_phase(dev):
         mask_p = (ref[1] <= ref[2]) | (ref[1] <= 0.05)
         if not torch.equal(mask_k, mask_p):
             raise AssertionError(f"blend3 {label}: validity mask differs")
-        log(f"blend3 {label}: mask exact, floats within {FLOAT_TOL}")
+        log(f"blend3 {label}, {slices} slices: mask exact, floats within "
+            f"{FLOAT_TOL}")
     out = cuda_nn.blend3(query, anchors, flows)
     stats["blend3"] = dict(
         shape="(9, 4096, 4096)", max_abs_err=err,
@@ -1561,7 +1661,9 @@ def device_time_by_name(prof):
 # kernel-name fragments of a profile's classes, first match wins
 KERNEL_CLASSES = (
     ("the port's kernels", ("ball_query_kernel", "fps_kernel",
-                            "nn_topk_kernel")),
+                            "nn_topk_kernel", "blend3_kernel", "nn1_bidir_",
+                            "auction", "nn1_coords_kernel", "nn_bidir_kernel",
+                            "row_top2_kernel", "col_winner_kernel")),
     ("matrix products", ("gemm", "cutlass", "cublas", "gemv")),
     ("reductions", ("reduce_kernel",)),
     ("gathers and their backward", ("index", "gather", "scatter")),
@@ -1738,9 +1840,114 @@ def corr_flow_run_phase(dev, tmp, sample, seq_dir, norm_file, corr_path,
     return launches
 
 
+class ProfileWindows:
+    """torch.profiler windows over iterations [start, stop) of a fit, opened
+    and closed from its noise(it) callback, which runs at the start of each
+    iteration (in the assign phase, before the LAP of the iterations it
+    starts). Each window keeps its profile and its wall-clock seconds."""
+
+    def __init__(self, windows):
+        self.windows = windows  # {label: (start, stop)}
+        self.done = {}
+        self.open = None
+
+    def tick(self, it):
+        from torch.profiler import ProfilerActivity, profile
+
+        if self.open is not None and it == self.windows[self.open[0]][1]:
+            label, prof, t0 = self.open
+            torch.cuda.synchronize()
+            prof.stop()
+            self.done[label] = (prof, time.perf_counter() - t0)
+            self.open = None
+        for label, (start, _) in self.windows.items():
+            if it == start:
+                torch.cuda.synchronize()
+                prof = profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA])
+                prof.start()
+                self.open = (label, prof, time.perf_counter())
+
+
+def log_fit_window(what, prof, iters, wall_s):
+    """A fit window's device time: busy and idle share, ms per iteration,
+    and the two neighbour kernels' ms per iteration by kernel name."""
+    by_name = device_time_by_name(prof)
+    wall_ms = 1e3 * wall_s / iters
+    busy_ms = sum(by_name.values()) / 1e3 / iters
+    if busy_ms == 0.0:
+        log(f"{what}: device time not measured (the profiler recorded no "
+            f"device activity); {wall_ms:.3f} ms of wall clock an iteration")
+        return
+
+    def named(frag):
+        return sum(t for k, t in by_name.items() if frag in k) / 1e3 / iters
+
+    log(f"{what}: {wall_ms:.4f} ms of wall clock and {busy_ms:.4f} ms of "
+        f"device time an iteration, device busy {100 * busy_ms / wall_ms:.1f}"
+        f"%, idle {100 * max(0.0, 1 - busy_ms / wall_ms):.1f}% (under the "
+        f"profiler); blend3 {named('blend3_kernel'):.4f} ms, "
+        f"nn1_bidir_coords {named('nn1_bidir_'):.4f} ms (scan and decode) an "
+        f"iteration")
+    log_profile(what, prof, iters, wall_ms)
+
+
+def nondeterminism_census(cano, pcs, flow_ctx, make_model):
+    """One recon and one assign iteration of the nao-scale fit under
+    torch.use_deterministic_algorithms(True, warn_only=True), with every
+    ATen operator recorded: the warnings name the operators that have no
+    deterministic implementation; the operators of the scatter, gather and
+    put families are the ones that the flag would otherwise swap silently.
+    The flag is put back as it was."""
+    import warnings
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from reart_tpu_torch.train import FitConfig, fit_base
+
+    class Census(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names = set()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.names.add(str(func.overloadpacket))
+            return func(*args, **(kwargs or {}))
+
+    cfg = FitConfig(n_iter=2, use_assign_loss=True, use_flow_loss=True,
+                    assign_iter=1, assign_gap=1, downsample=4)
+    was = torch.are_deterministic_algorithms_enabled()
+    was_warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            with Census() as census:
+                fit_base(make_model(0), cfg, cano, pcs, flow_ctx=flow_ctx)
+                torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(was, warn_only=was_warn)
+    flagged = sorted({str(w.message).split(" does not have")[0]
+                      for w in caught
+                      if "deterministic" in str(w.message)})
+    families = ("index_add", "scatter", "index_put", "put", "gather",
+                "index_select", "index", "embedding", "bincount", "histc",
+                "cumsum", "segment_reduce", "sort", "searchsorted")
+    suspects = sorted(n for n in census.names
+                      if any(f in n for f in families))
+    log(f"fit determinism census (one recon and one assign iteration): "
+        f"{len(census.names)} ATen operators; flagged without a "
+        f"deterministic implementation: {flagged or 'none'}; of the "
+        f"scatter, gather, index and sort families: {suspects}")
+    return flagged
+
+
 def fit_phase(dev):
     """fit_base at nao scale: T=10, N=4096, P=20, flow + assign losses,
-    assign_gap 5, downsample 4 (LAP 9 x 1024^2), 30 + 30 iterations."""
+    assign_gap 5, downsample 4 (LAP 9 x 1024^2), 30 + 30 iterations. The
+    fit runs twice from the same model seed, noise generator and data, and
+    the two histories must be equal bit for bit; the second run takes
+    torch.profiler windows over 10 recon and 10 assign iterations."""
     from reart_tpu_torch.models import BaseModel
     from reart_tpu_torch.models.base_model import gumbel_noise
     from reart_tpu_torch.train import FitConfig, FlowContext, fit_base
@@ -1762,21 +1969,27 @@ def fit_phase(dev):
              cano, pcs, flow_ctx=flow_ctx)
     torch.cuda.synchronize()
 
-    gen = torch.Generator(device=dev).manual_seed(0)
+    def run(marks=None, windows=None):
+        gen = torch.Generator(device=dev).manual_seed(0)
+
+        def noise(it):  # called once per iteration, in order
+            if marks is not None and it in (0, cfg.assign_iter):
+                torch.cuda.synchronize()
+                marks[it] = time.perf_counter()
+            if windows is not None:
+                windows.tick(it)
+            return gumbel_noise((4096, 20), gen, dev)
+
+        _, hist = fit_base(make_model(0), cfg, cano, pcs, flow_ctx=flow_ctx,
+                           noise=noise)
+        torch.cuda.synchronize()
+        return hist
+
     marks = {}
-
-    def noise(it):  # called once per iteration, in order
-        if it in (0, cfg.assign_iter):
-            torch.cuda.synchronize()
-            marks[it] = time.perf_counter()
-        return gumbel_noise((4096, 20), gen, dev)
-
     wrappers = kernel_wrappers()
     for w in wrappers:
         w.launches = 0
-    _, hist = fit_base(make_model(0), cfg, cano, pcs, flow_ctx=flow_ctx,
-                       noise=noise)
-    torch.cuda.synchronize()
+    hist = run(marks)
     t_end = time.perf_counter()
     launches = {w.__name__: w.launches for w in wrappers}
 
@@ -1801,6 +2014,21 @@ def fit_phase(dev):
         f"build), assign+flow phase "
         f"{(cfg.n_iter - n_recon) / assign_s:.2f} iters/s")
     log(f"fit: kernel launches {launches}")
+
+    windows = ProfileWindows({"recon": (10, 20), "assign": (40, 50)})
+    again = run(windows=windows)
+    differ = [k for k in hist if not torch.equal(hist[k], again[k])]
+    if differ:
+        first = {k: int(torch.nonzero(hist[k] != again[k])[0])
+                 for k in differ}
+        raise AssertionError(f"fit: two runs from the same seeds differ in "
+                             f"{differ}, first at iterations {first}")
+    log(f"fit: a second run from the same seeds gives the same history bit "
+        f"for bit ({', '.join(hist)})")
+    for label, (prof, wall_s) in windows.done.items():
+        log_fit_window(f"fit: {label} window, 10 iterations", prof, 10,
+                       wall_s)
+    nondeterminism_census(cano, pcs, flow_ctx, make_model)
     return launches
 
 
@@ -1977,7 +2205,31 @@ SAPIEN_PROJECTION = ("--model kinematic --tree_search 0 --downsample 1 "
                      "--assign_iter 50 --assign_band_reprobe 0")
 
 
-def sapien_chain_phase(dev, tmp):
+# graph/kinematics.build_graph: prismatic iff the largest relative rotation
+# of the joint over the frames is below this many radians
+ROT_AMP_THR = 0.15
+
+
+def log_joint_rotations(what, result_path):
+    """Each joint of a result.pkl's tree: the largest rotation angle of the
+    child's pose relative to the parent's over the frames, which types it
+    (prismatic below ROT_AMP_THR)."""
+    from reart_tpu_torch import checkpoint
+
+    saved = checkpoint.load_result(result_path)
+    poses = np.asarray(saved["pred_pose_list"], np.float64)  # (T, P, 4, 4)
+    parts = []
+    for c, p in np.asarray(saved["joint_connection"]).reshape(-1, 2):
+        rel = np.linalg.inv(poses[:, p]) @ poses[:, c]
+        cos = (np.trace(rel[:, :3, :3], axis1=-2, axis2=-1) - 1.0) / 2.0
+        ang = float(np.arccos(np.clip(cos, -1.0, 1.0)).max())
+        kind = "prismatic" if ang < ROT_AMP_THR else "revolute"
+        parts.append(f"({int(c)}, {int(p)}) {ang:.4f} rad {kind}")
+    log(f"{what}: largest relative rotation of each joint: "
+        + "; ".join(parts))
+
+
+def sapien_chain_phase(dev, tmp, keep_dir=None):
     """The sapien domain at full width: `make_sapien_scene`, 8 views x 4096
     points, 6 parts (three revolute and two prismatic joints); the
     relaxation run from the scene's --flow_file at --downsample 1 (a (7,
@@ -2002,11 +2254,17 @@ def sapien_chain_phase(dev, tmp):
         out["relaxation"] = _drive(args, "sapien", sample, save_dir,
                                    "sapien relaxation run", probes)
         _log_probes("sapien relaxation run", probes, args.assign_band_guard)
+        base = os.path.join(save_dir, "result.pkl")
+        log_joint_rotations("sapien relaxation run", base)
+        if keep_dir is not None:
+            keep = os.path.join(keep_dir, "sapien_relaxation_result.pkl")
+            os.makedirs(keep_dir, exist_ok=True)
+            shutil.copyfile(base, keep)
+            log(f"sapien relaxation run: result.pkl kept as {keep}")
         if len(probes) != 2:
             raise AssertionError(f"sapien relaxation run: {len(probes)} guard "
                                  f"probes, expected the phase start's and "
                                  f"one re-probe")
-        base = os.path.join(save_dir, "result.pkl")
         kargs = cli.build_parser().parse_args(
             common + ["--save_root", os.path.join(tmp, "sapien_kin"),
                       "--base_result_path", base,
@@ -2200,6 +2458,11 @@ def toy_sapien_phase(dev, tmp):
 
 
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--keep_dir", default=None,
+                        help="a directory to copy the full-width sapien "
+                             "relaxation run's result.pkl into (phase 10)")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available; this script runs "
               "only on a CUDA GPU", file=sys.stderr)
@@ -2226,7 +2489,7 @@ def main():
         corr_flow_launches = corr_flow_run_phase(dev, tmp, sample, seq_dir,
                                                  norm_file, corr_path, stats)
         toy_sapien_phase(dev, tmp)
-        sapien = sapien_chain_phase(dev, tmp)
+        sapien = sapien_chain_phase(dev, tmp, args.keep_dir)
         real = real_chain_phase(dev, tmp)
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
     log(card)  # once more, where the end of a long log still shows it

@@ -8,85 +8,154 @@
 // Distances are channel-wise diff^2, summed (dx^2 + dy^2) + dz^2 (the
 // Pallas kernel's _sqdist_tile order); ties go to the lowest index.
 //
-// What bounds it on an H100: float32 ALU throughput. At (9, 4096, 4096)
-// there are 151M point pairs per direction at ~11 instructions each; the
-// clouds themselves are 0.9 MB, so memory is not the limit.
+// What bounds it on an H100: float32 issue rate (nn_split.cuh): 151M
+// (src, tgt) pairs at (9, 4096, 4096), each distance computed once and
+// reduced along both axes, as the TPU kernel does.
 //
-// Design: the TPU kernel carries the reverse (column) minima across a
-// sequential grid; CUDA blocks run in no order, so this kernel computes the
-// two directions as two halves of one launch (blockIdx.z), each a plain
-// "one query per thread, reference tiles staged in shared memory" 1-NN. Every
-// thread walks the references in ascending index with a strict '<', so ties
-// go to the lowest index with no cross-block merge and no atomics, and the
-// result is deterministic. The price is computing each distance twice
-// ((q - r)^2 == (r - q)^2 bit for bit); a single pass with a 64-bit
-// atomicMin column merge is later work. Ragged N and M are masked, not
-// padded. Built with -fmad=false so no sum is contracted into an FMA.
+// Design (nn_split.cuh): one pass over the (N, M) plane. A block of 256
+// threads takes 128 src rows x 512 tgt columns; the grid is (N / 128,
+// M / 512, B). The block's columns are staged in shared memory; each thread
+// keeps 16 src rows (rows r0 + ty + 8 r) in registers and walks 4 columns a
+// step (c + tx + 32 k), so each distance feeds its row's and its column's
+// running minimum, both kept with strict '<' in ascending index. A step's
+// column minima are merged over the 8 lanes that share the columns by
+// shuffles, the row minima at the end over the 4 thread columns of a warp by
+// shuffles and over the 8 warps in shared memory, all on (distance, index)
+// keys; each block then posts one 64-bit atomicMin per row and per column
+// of its tile to the (B, N) and (B, M) key buffers. A second kernel decodes
+// the keys (the distance is the key's upper 32 bits, exactly) and copies
+// the winners' coordinates. Rows and columns past N or M are NaN, which
+// never wins a '<'. A call makes four device launches: two memsets of the
+// key buffers to all ones, the scan and the decode. Built with -fmad=false
+// so no sum is contracted into an FMA.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "nn_split.cuh"
+
 namespace {
 
-constexpr int kBlock = 128;  // queries per block, one per thread
-constexpr int kTile = 1024;  // reference points per shared-memory tile
+using nn_split::Key;
 
-__global__ void __launch_bounds__(kBlock)
-nn1_dir_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
-               int n, int m, float* __restrict__ fd,
-               long long* __restrict__ fi, float* __restrict__ fc,
-               float* __restrict__ bd, long long* __restrict__ bi,
-               float* __restrict__ bc) {
-  __shared__ float4 tile[kTile];
-  const bool rev = blockIdx.z == 1;
-  const int nq = rev ? m : n;
-  const int nr = rev ? n : m;
-  if (blockIdx.x * kBlock >= nq) return;  // whole block past this direction
-  const int b = blockIdx.y;
-  const float* q = (rev ? tgt : src) + (size_t)b * nq * 3;
-  const float* r = (rev ? src : tgt) + (size_t)b * nr * 3;
-  const int i = blockIdx.x * kBlock + threadIdx.x;
-  const bool active = i < nq;
+constexpr int kThreads = 256;
+constexpr int kTY = 8;                // thread rows: lanes 0-7 of a group
+constexpr int kTX = kThreads / kTY;   // 32 thread columns, 4 a warp
+constexpr int kRT = 16;               // src rows of a thread
+constexpr int kCT = 4;                // tgt columns of a thread a step
+constexpr int kRows = kTY * kRT;      // 128 src rows a block
+constexpr int kStep = kTX * kCT;      // 128 tgt columns a step
+constexpr int kCols = 512;            // tgt columns a block
+constexpr int kWarps = kThreads / 32;
 
-  float qx = 0.f, qy = 0.f, qz = 0.f;
-  if (active) {
-    qx = q[3 * i];
-    qy = q[3 * i + 1];
-    qz = q[3 * i + 2];
+__global__ void __launch_bounds__(kThreads, 2)
+nn1_bidir_scan_kernel(const float* __restrict__ src,
+                      const float* __restrict__ tgt, int n, int m,
+                      Key* __restrict__ fkey, Key* __restrict__ bkey) {
+  __shared__ float4 s_tgt[kCols];
+  __shared__ Key s_row[kWarps][kRows];
+
+  const int b = blockIdx.z;
+  const float* sp = src + (size_t)b * n * 3;
+  const float* tp = tgt + (size_t)b * m * 3;
+  const int r0 = blockIdx.x * kRows;
+  const int c0 = blockIdx.y * kCols;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int ty = lane % kTY;
+  const int tx = warp * (32 / kTY) + lane / kTY;
+
+  for (int e = threadIdx.x; e < kCols; e += kThreads) {
+    const int c = c0 + e;
+    float4 v = make_float4(NAN, NAN, NAN, 0.f);
+    if (c < m) v = make_float4(tp[3 * c], tp[3 * c + 1], tp[3 * c + 2], 0.f);
+    s_tgt[e] = v;
   }
-  float best = INFINITY;
-  int best_j = 0;
-  for (int t0 = 0; t0 < nr; t0 += kTile) {
-    const int cnt = min(kTile, nr - t0);
-    __syncthreads();
-    for (int k = threadIdx.x; k < cnt; k += kBlock) {
-      const float* p = r + 3 * (size_t)(t0 + k);
-      tile[k] = make_float4(p[0], p[1], p[2], 0.f);
+  float sx[kRT], sy[kRT], sz[kRT], rd[kRT];
+  int rj[kRT];
+#pragma unroll
+  for (int r = 0; r < kRT; ++r) {
+    const int row = r0 + ty + kTY * r;
+    sx[r] = sy[r] = sz[r] = NAN;
+    if (row < n) {
+      sx[r] = sp[3 * row];
+      sy[r] = sp[3 * row + 1];
+      sz[r] = sp[3 * row + 2];
     }
-    __syncthreads();
-#pragma unroll 8
-    for (int k = 0; k < cnt; ++k) {
-      const float4 p = tile[k];
-      const float dx = qx - p.x;
-      const float dy = qy - p.y;
-      const float dz = qz - p.z;
-      float d = dx * dx + dy * dy;
-      d = d + dz * dz;
-      if (d < best) {
-        best = d;
-        best_j = t0 + k;
+    rd[r] = INFINITY;
+    rj[r] = 0;
+  }
+  __syncthreads();
+
+  const int ncols = min(kCols, m - c0);
+  for (int c = 0; c < ncols; c += kStep) {
+    Key ck[kCT];
+#pragma unroll
+    for (int k = 0; k < kCT; ++k) {
+      const int e = c + tx + kTX * k;
+      const float4 p = s_tgt[e];
+      float cd = INFINITY;
+      int cr = 0;  // the thread's row slot: row r0 + ty + kTY * cr
+#pragma unroll
+      for (int r = 0; r < kRT; ++r) {
+        const float d = nn_split::sqdist(sx[r], sy[r], sz[r], p.x, p.y, p.z);
+        if (d < rd[r]) {
+          rd[r] = d;
+          rj[r] = c0 + e;
+        }
+        if (d < cd) {
+          cd = d;
+          cr = r;
+        }
+      }
+      ck[k] = nn_split::lane_min<kTY - 1>(
+          nn_split::make_key(cd, r0 + ty + kTY * cr));
+    }
+    if (ty == 0) {
+#pragma unroll
+      for (int k = 0; k < kCT; ++k) {
+        const int col = c0 + c + tx + kTX * k;
+        if (col < m) atomicMin(&bkey[(size_t)b * m + col], ck[k]);
       }
     }
   }
-  if (!active) return;
 
-  const size_t o = (size_t)b * nq + i;
-  float* od = rev ? bd : fd;
-  long long* oi = rev ? bi : fi;
+#pragma unroll
+  for (int r = 0; r < kRT; ++r) {
+    const Key k = nn_split::lane_min<31 & ~(kTY - 1)>(
+        nn_split::make_key(rd[r], rj[r]));
+    if (lane < kTY) s_row[warp][ty + kTY * r] = k;
+  }
+  __syncthreads();
+  if (threadIdx.x < kRows && r0 + (int)threadIdx.x < n) {
+    Key k = s_row[0][threadIdx.x];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) k = nn_split::key_min(k, s_row[w][threadIdx.x]);
+    atomicMin(&fkey[(size_t)b * n + r0 + threadIdx.x], k);
+  }
+}
+
+// One thread per src point (forward) and per tgt point (reverse).
+__global__ void nn1_bidir_decode_kernel(
+    const float* __restrict__ src, const float* __restrict__ tgt, int batch,
+    int n, int m, const Key* __restrict__ fkey, const Key* __restrict__ bkey,
+    float* __restrict__ fd, long long* __restrict__ fi,
+    float* __restrict__ fc, float* __restrict__ bd,
+    long long* __restrict__ bi, float* __restrict__ bc) {
+  const size_t t = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t nf = (size_t)batch * n;
+  const size_t nb = (size_t)batch * m;
+  const bool rev = t >= nf;
+  const size_t o = rev ? t - nf : t;
+  if (o >= (rev ? nb : nf)) return;
+  const int nq = rev ? m : n;
+  const int nr = rev ? n : m;
+  const Key k = (rev ? bkey : fkey)[o];
+  const int j = nn_split::key_index(k);
+  (rev ? bd : fd)[o] = nn_split::key_dist(k);
+  (rev ? bi : fi)[o] = j;
+  const float* w = (rev ? src : tgt) + 3 * ((o / nq) * nr + j);
   float* oc = rev ? bc : fc;
-  od[o] = best;
-  oi[o] = best_j;
-  const float* w = r + 3 * (size_t)best_j;
   oc[3 * o] = w[0];
   oc[3 * o + 1] = w[1];
   oc[3 * o + 2] = w[2];
@@ -94,14 +163,28 @@ nn1_dir_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
 
 }  // namespace
 
+// fkey (B, N) and bkey (B, M): 64-bit scratch that the wrapper allocates.
 extern "C" int reart_nn1_bidir_coords(const float* src, const float* tgt,
                                       int batch, int n, int m, float* fd,
                                       long long* fi, float* fc, float* bd,
-                                      long long* bi, float* bc,
-                                      void* stream) {
-  const int rows = n > m ? n : m;
-  const dim3 grid((rows + kBlock - 1) / kBlock, batch, 2);
-  nn1_dir_kernel<<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      src, tgt, n, m, fd, fi, fc, bd, bi, bc);
+                                      long long* bi, float* bc, Key* fkey,
+                                      Key* bkey, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t nf = (size_t)batch * n;
+  const size_t nb = (size_t)batch * m;
+  cudaError_t err = cudaMemsetAsync(fkey, 0xff, nf * sizeof(Key), st);
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(bkey, 0xff, nb * sizeof(Key), st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((n + kRows - 1) / kRows, (m + kCols - 1) / kCols, batch);
+  nn1_bidir_scan_kernel<<<grid, kThreads, 0, st>>>(src, tgt, n, m, fkey,
+                                                   bkey);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t total = nf + nb;
+  const unsigned blocks = static_cast<unsigned>((total + 255) / 256);
+  nn1_bidir_decode_kernel<<<blocks, 256, 0, st>>>(src, tgt, batch, n, m, fkey,
+                                                  bkey, fd, fi, fc, bd, bi,
+                                                  bc);
   return static_cast<int>(cudaGetLastError());
 }

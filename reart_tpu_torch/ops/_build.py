@@ -40,10 +40,11 @@ _F = ctypes.c_float
 # C entry points of the library: name -> argument types. Every function
 # returns cudaGetLastError() after its launch (0 = cudaSuccess).
 SIGNATURES = {
-    # src, tgt, B, N, M, fd, fi, fc, bd, bi, bc, stream
-    "reart_nn1_bidir_coords": (_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P),
-    # query, ref, flow, B, N, M, out, min_d, flow_d, stream
-    "reart_blend3": (_P, _P, _P, _I, _I, _I, _P, _P, _P, _P),
+    # src, tgt, B, N, M, fd, fi, fc, bd, bi, bc, fkey, bkey (scratch), stream
+    "reart_nn1_bidir_coords": (_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                               _P, _P),
+    # query, ref, flow, B, N, M, slices, out, min_d, flow_d, stream
+    "reart_blend3": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
     # xyz, mask, B, N, npoint, out, stream
     "reart_fps": (_P, _P, _I, _I, _I, _P, _P),
     # benefit, price_in, B, N, M, eps (host float*), n_eps, max_sweeps,
@@ -167,6 +168,14 @@ def stream_of(tensor) -> ctypes.c_void_p:
 
     return ctypes.c_void_p(
         torch.cuda.current_stream(tensor.device).cuda_stream)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """The number of streaming multiprocessors of a CUDA device."""
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def require_cuda(name: str, *tensors, dtype=None) -> None:

@@ -18,7 +18,9 @@ Counterpart of reart_tpu/ops/pallas_nn.py:
     order (Pallas `ball_query_pallas`): the grouping of the PointNet++
     set-abstraction layers.
 
-The three scans of the second group share csrc/nn_scan.cuh.
+The first two split their scans across threads and blocks and merge the
+partial winners in (distance, index) order (csrc/nn_split.cuh); the three
+scans of the second group share csrc/nn_scan.cuh.
 
 Each wrapper takes the plain version for a CPU tensor and launches its
 kernel for a CUDA tensor (or raises); `<wrapper>.launches` counts kernel
@@ -33,8 +35,19 @@ import torch
 from reart_tpu_torch.ops import _build
 
 
-# nn1_bidir_coords and blend3 put the batch on gridDim.y
+# nn1_bidir_coords and blend3 put the batch on gridDim.z and gridDim.y
 MAX_BATCH = 65535
+# nn1_bidir_coords: the (src rows, tgt columns) tile of one block; the
+# column tiles go on gridDim.y
+NN1_BIDIR_TILE = (128, 512)
+# blend3: a block of 128 threads, 2 queries each, holds BLEND3_QUERIES // S
+# queries and cuts the anchors into S slices (S a power of two up to
+# BLEND3_MAX_SLICES) of at least BLEND3_MIN_SLICE anchors
+BLEND3_QUERIES = 256
+BLEND3_MAX_SLICES = 16
+BLEND3_MIN_SLICE = 64
+# blend3's threshold pass reads every BLEND3_SAMPLE-th anchor of a slice
+BLEND3_SAMPLE = 4
 # nn_topk, nn1_coords and nn_bidir fold the batch into gridDim.x
 MAX_BLOCKS = 2 ** 31 - 1
 # largest k of nn_topk: the kernel keeps its running top-k in registers, in
@@ -110,19 +123,23 @@ def nn1_bidir_coords(src: torch.Tensor, tgt: torch.Tensor):
         return nn1_bidir_coords_plain(src, tgt)
     _build.require_cuda(name, src, tgt, dtype=torch.float32)
     b, n, m = src.shape[0], src.shape[1], tgt.shape[1]
+    if -(-m // NN1_BIDIR_TILE[1]) > MAX_BATCH:
+        raise ValueError(f"{name}: {m} target points is past the grid limit")
     f32 = dict(dtype=torch.float32, device=src.device)
     i64 = dict(dtype=torch.int64, device=src.device)
     fd, fi, fc = (torch.empty((b, n), **f32), torch.empty((b, n), **i64),
                   torch.empty((b, n, 3), **f32))
     bd, bi, bc = (torch.empty((b, m), **f32), torch.empty((b, m), **i64),
                   torch.empty((b, m, 3), **f32))
+    # the (distance, index) keys of the merge; the kernel sets them
+    fkey, bkey = torch.empty((b, n), **i64), torch.empty((b, m), **i64)
     lib = _build.load_library()
     with torch.cuda.device(src.device):
         err = lib.reart_nn1_bidir_coords(
             src.data_ptr(), tgt.data_ptr(), b, n, m,
             fd.data_ptr(), fi.data_ptr(), fc.data_ptr(),
             bd.data_ptr(), bi.data_ptr(), bc.data_ptr(),
-            _build.stream_of(src))
+            fkey.data_ptr(), bkey.data_ptr(), _build.stream_of(src))
     _build.check_launch(name, err)
     nn1_bidir_coords.launches += 1
     return fd, fi, fc, bd, bi, bc
@@ -141,17 +158,29 @@ def _sqnorm(p: torch.Tensor) -> torch.Tensor:
             + p[..., 2] * p[..., 2])
 
 
-def blend3_plain(query: torch.Tensor, ref: torch.Tensor, flow: torch.Tensor):
-    """query (B, N, 3), ref/flow (B, M >= 3, 3) -> (blended (B, N, 3),
-    min_dist (B, N), flow_sqnorm_max (B, N)); see csrc/blend3.cu."""
+def blend3_sqdist(query: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """(B, N, M) distances of blend3: (|q|^2 + |r|^2) - 2 q.r clamped at 0,
+    q.r summed (x + y) + z."""
     q2 = _sqnorm(query)[:, :, None]
     r2 = _sqnorm(ref)[:, None, :]
     cross = None
     for c in range(3):
         t = query[..., c][:, :, None] * ref[..., c][:, None, :]
         cross = t if cross is None else cross + t
-    d = torch.clamp_min((q2 + r2) - 2.0 * cross, 0.0)
-    dk, ik = ksmallest(d, 3)                                  # (B, N, 3)
+    return torch.clamp_min((q2 + r2) - 2.0 * cross, 0.0)
+
+
+def blend3_plain(query: torch.Tensor, ref: torch.Tensor, flow: torch.Tensor):
+    """query (B, N, 3), ref/flow (B, M >= 3, 3) -> (blended (B, N, 3),
+    min_dist (B, N), flow_sqnorm_max (B, N)); see csrc/blend3.cu."""
+    dk, ik = ksmallest(blend3_sqdist(query, ref), 3)          # (B, N, 3)
+    return blend3_epilogue(dk, ik, flow)
+
+
+def blend3_epilogue(dk: torch.Tensor, ik: torch.Tensor, flow: torch.Tensor):
+    """The blend from the 3 nearest anchors' distances dk (B, N, 3) and
+    indices ik: blend3_plain's outputs, in the kernel's order of operations.
+    """
     dist = torch.clamp_min(torch.sqrt(torch.clamp_min(dk, 0.0)), 1e-10)
     w = 1.0 / dist
     wsum = (w[..., 0] + w[..., 1]) + w[..., 2]
@@ -160,6 +189,18 @@ def blend3_plain(query: torch.Tensor, ref: torch.Tensor, flow: torch.Tensor):
     fs = [_sqnorm(fj) for fj in f]
     flow_d = torch.maximum(torch.maximum(fs[0], fs[1]), fs[2])
     return blended / wsum[..., None], dist[..., 0], flow_d
+
+
+def blend3_slices(b: int, n: int, m: int, sms: int) -> int:
+    """S, the slices blend3's kernel cuts the M anchors into for a (B, N, M)
+    call on a card of `sms` SMs: doubled from 1 while the grid holds fewer
+    than 8 blocks an SM and each slice keeps BLEND3_MIN_SLICE anchors or
+    more, up to BLEND3_MAX_SLICES. (9, 4096, 4096) on 132 SMs takes 8."""
+    s = 1
+    while (s < BLEND3_MAX_SLICES and m >= 2 * s * BLEND3_MIN_SLICE
+           and b * -(-n * s // BLEND3_QUERIES) < 8 * sms):
+        s *= 2
+    return s
 
 
 def blend3(query: torch.Tensor, ref: torch.Tensor, flow: torch.Tensor):
@@ -179,11 +220,12 @@ def blend3(query: torch.Tensor, ref: torch.Tensor, flow: torch.Tensor):
     f32 = dict(dtype=torch.float32, device=query.device)
     out = torch.empty((b, n, 3), **f32)
     min_d, flow_d = torch.empty((b, n), **f32), torch.empty((b, n), **f32)
+    slices = blend3_slices(b, n, m, _build.sm_count(query.device))
     lib = _build.load_library()
     with torch.cuda.device(query.device):
         err = lib.reart_blend3(
             query.data_ptr(), ref.data_ptr(), flow.data_ptr(), b, n, m,
-            out.data_ptr(), min_d.data_ptr(), flow_d.data_ptr(),
+            slices, out.data_ptr(), min_d.data_ptr(), flow_d.data_ptr(),
             _build.stream_of(query))
     _build.check_launch(name, err)
     blend3.launches += 1

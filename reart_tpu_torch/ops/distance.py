@@ -54,22 +54,30 @@ def nearest_neighbor(query: torch.Tensor, ref: torch.Tensor):
     return torch.gather(sq, -1, idx[..., None])[..., 0], idx
 
 
-def _scatter_rows(idx: torch.Tensor, vals: torch.Tensor, n: int):
-    """Batched scatter-add: idx (B, K), vals (B, K, 3) -> (B, n, 3)."""
-    b = idx.shape[0]
+def scatter_rows(idx: torch.Tensor, vals: torch.Tensor, n: int):
+    """Batched scatter-add in a fixed order: idx (B, K), vals (B, K, C) ->
+    (B, n, C), row i of element b the sum of the vals whose idx is i, added
+    one by one in ascending k, starting from zero. That is the order of
+    `index_add_` on the CPU, and it is the same on every device and in every
+    run: the rows are sorted stably, and each row's run is summed in order
+    by one thread of `segment_reduce` (an `index_add_` on the card adds with
+    float atomics in arrival order)."""
+    b, c = idx.shape[0], vals.shape[-1]
     offs = torch.arange(b, device=idx.device)[:, None] * n
-    out = torch.zeros((b * n, vals.shape[-1]), dtype=vals.dtype,
-                      device=vals.device)
-    out.index_add_(0, (idx + offs).reshape(-1),
-                   vals.reshape(-1, vals.shape[-1]))
-    return out.reshape(b, n, vals.shape[-1])
+    rows, order = torch.sort((idx + offs).reshape(-1), stable=True)
+    bounds = torch.searchsorted(
+        rows, torch.arange(b * n + 1, device=idx.device))
+    out = torch.segment_reduce(vals.reshape(-1, c)[order], "sum",
+                               offsets=bounds, axis=0, unsafe=True)
+    return out.reshape(b, n, c)
 
 
 class _NNPoints(torch.autograd.Function):
     """Per-point NN squared distance and (non-differentiable) index of
     query (B, N, 3) in ref (B, M, 3), with the winners' coordinates from the
     kernel. Gradients: 2 g (query - nn) to the query, the scatter-add of its
-    negative to the ref, skipped when the ref needs no gradient."""
+    negative to the ref (`scatter_rows`: the same bits in every run),
+    skipped when the ref needs no gradient."""
 
     @staticmethod
     def forward(ctx, query, ref):
@@ -85,7 +93,7 @@ class _NNPoints(torch.autograd.Function):
         resid = 2.0 * g[..., None] * (query - coords)   # (B, N, 3)
         grad_ref = None
         if ctx.needs_input_grad[1]:
-            grad_ref = _scatter_rows(idx, -resid, ctx.ref_points)
+            grad_ref = scatter_rows(idx, -resid, ctx.ref_points)
         return (resid if ctx.needs_input_grad[0] else None), grad_ref
 
 
@@ -93,8 +101,9 @@ class _NNBidir(torch.autograd.Function):
     """Bidirectional per-point NN squared distances and (non-differentiable)
     indices from one fused kernel pass. Gradients: a direct residual
     2 g (x - nn) on the query side of each direction and the matching
-    scatter-add on its ref side; a cloud that needs no gradient (the
-    observed clouds of recon_loss) skips its scatter."""
+    scatter-add (`scatter_rows`: the same bits in every run) on its ref
+    side; a cloud that needs no gradient (the observed clouds of recon_loss)
+    skips its scatter."""
 
     @staticmethod
     def forward(ctx, src, tgt):
@@ -110,9 +119,9 @@ class _NNBidir(torch.autograd.Function):
         resid_b = 2.0 * gb[..., None] * (tgt - bc)   # (B, M, 3)
         grad_src = grad_tgt = None
         if ctx.needs_input_grad[0]:
-            grad_src = resid_f + _scatter_rows(bi, -resid_b, src.shape[1])
+            grad_src = resid_f + scatter_rows(bi, -resid_b, src.shape[1])
         if ctx.needs_input_grad[1]:
-            grad_tgt = resid_b + _scatter_rows(fi, -resid_f, tgt.shape[1])
+            grad_tgt = resid_b + scatter_rows(fi, -resid_f, tgt.shape[1])
         return grad_src, grad_tgt
 
 

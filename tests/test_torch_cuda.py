@@ -60,6 +60,39 @@ def test_nn1_bidir_ties(cuda):
     _same(got, cuda_nn.nn1_bidir_coords_plain(src, tgt), exact={1, 2, 4, 5})
 
 
+@pytest.mark.parametrize("b,n,m", [(9, 4096, 4096), (3, 4097, 1000),
+                                   (2, 129, 513), (1, 1, 600)])
+def test_nn1_bidir_ties_across_tiles(cuda, b, n, m):
+    # 100 points repeated, the target shifted by 7: exact ties straddle the
+    # kernel's 128-row and 512-column tiles both ways
+    rep = _randn(7, 1, 100, 3).repeat(b, 50, 1)
+    src, tgt = rep[:, :n].contiguous(), rep[:, 7:7 + m].contiguous()
+    got = cuda_nn.nn1_bidir_coords(src.to(cuda), tgt.to(cuda))
+    _same(got, cuda_nn.nn1_bidir_coords_plain(src, tgt), exact={1, 2, 4, 5})
+
+
+@pytest.mark.parametrize("b,n,m", [(9, 4096, 4096), (2, 300, 4093),
+                                   (2, 77, 130), (3, 1000, 3001)])
+def test_blend3_ties_across_slices(cuda, b, n, m):
+    # 64 points repeated: each query's 3 nearest are copies 64 apart, in
+    # different slices whenever there is more than one
+    q = _randn(8, b, n, 3)
+    r = _randn(9, 1, 64, 3).repeat(b, -(-m // 64), 1)[:, :m].contiguous()
+    f = 0.05 * _randn(10, b, m, 3)
+    got = cuda_nn.blend3(q.to(cuda), r.to(cuda), f.to(cuda))
+    _same(got, cuda_nn.blend3_plain(q, r, f), exact=set())
+
+
+@pytest.mark.parametrize("m", [3, 4, 129, 4093])
+def test_blend3_anchor_counts_and_far_padding(cuda, m):
+    q, r = _randn(11, 2, 257, 3), _randn(12, 2, m, 3)
+    f = 0.05 * _randn(13, 2, m, 3)
+    r[:, (2 * m) // 3:] = 1e6  # FlowContext's FAR padding, zero flow
+    f[:, (2 * m) // 3:] = 0.0
+    got = cuda_nn.blend3(q.to(cuda), r.to(cuda), f.to(cuda))
+    _same(got, cuda_nn.blend3_plain(q, r, f), exact=set())
+
+
 @pytest.mark.parametrize("b,n,m", [(1, 1, 3), (2, 130, 1025), (1, 64, 3000)])
 def test_blend3_ragged(cuda, b, n, m):
     q, r = _randn(1, b, n, 3), _randn(2, b, m, 3)
@@ -456,9 +489,26 @@ def test_chamfer_grads_on_card_match_cpu(cuda):
         t = tgt.to(dev).detach().requires_grad_(True)
         chamfer_loss(s, t).backward()
         grads.append((s.grad.cpu(), t.grad.cpu()))
-    # the scatter-add order differs (atomics on the card)
+    # the same winners, elementwise residuals and the scatter's fixed order
+    # of additions on both devices: the same bits
     for g, r in zip(grads[1], grads[0]):
-        torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-6)
+        assert torch.equal(g, r)
+
+
+def test_chamfer_backward_is_bit_identical_across_calls(cuda):
+    from reart_tpu_torch.ops.distance import chamfer_loss
+
+    # a sparse source against a dense target: each source point is the
+    # reverse winner of ~16 target points, a long sum in its gradient
+    src, tgt = _randn(14, 3, 256, 3), _randn(15, 3, 4096, 3)
+    grads = []
+    for _ in range(2):
+        s = src.to(cuda).requires_grad_(True)
+        t = tgt.to(cuda).requires_grad_(True)
+        chamfer_loss(s, t).backward()
+        grads.append((s.grad.cpu(), t.grad.cpu()))
+    for g, r in zip(*grads):
+        assert torch.equal(g, r)
 
 
 @pytest.mark.parametrize("k", [1, 2, 3, 5, 8])
