@@ -11,7 +11,13 @@ Phases, each of which raises on failure (exit code != 0):
   3. kernels vs plain: each of the twelve kernels against its plain PyTorch
              version on the card, at the main paths' shapes plus ragged and
              tie cases (for blend3 and nn1_bidir_coords also ties across
-             their slices and tiles, sizes past them, M = 3); indices and
+             their slices and tiles, sizes past them, M = 3; for fps N at
+             and past the boundaries of its register layout, every point
+             equal, one masked point, more picks than masked points; for the
+             resident auction, prices exact too, the sweep bound, N = 1,
+             N < M, M % 8 != 0, integer-cost ties, one slot buffer, 20
+             elements, and the streamed kernel timed on its inputs as a
+             yardstick); indices and
              coordinates exact, floats within FLOAT_TOL; ms of many launches
              per event pair (for the two kernels too small to fill the
              queue: of a replayed CUDA graph of many launches, which is
@@ -34,11 +40,14 @@ Phases, each of which raises on failure (exit code != 0):
   5. the fit: fit_base at nao scale (bench.py's synthetic sequence and
              config, 60 iterations), with every kernel's launch count; a
              second run from the same seeds must give the same history bit
-             for bit, and takes torch.profiler windows over 10 recon and 10
-             assign iterations (device busy and idle share, device ms an
-             iteration, blend3's and nn1_bidir_coords' ms an iteration);
-             then an operator census of one iteration of each phase under
-             torch.use_deterministic_algorithms(True, warn_only=True);
+             for bit, and takes torch.profiler windows over 10 recon
+             iterations, the assignment phase's start (its two FPS calls and
+             first solve) and 10 assign iterations (device busy and idle
+             share, device ms an iteration, blend3's and nn1_bidir_coords'
+             ms an iteration, fps' and the resident auction's ms in the
+             window); then an operator census of one iteration of each
+             phase under torch.use_deterministic_algorithms(True,
+             warn_only=True);
   6. the run: the relaxation run at full width (T=10, N=4096, 20 parts) on
              an articulated scene made in memory, with every kernel's
              launch count and the seconds of each finalize stage;
@@ -49,10 +58,14 @@ Phases, each of which raises on failure (exit code != 0):
              and of the whole run, seconds per stage;
   8. the corr chain at full width: the scene of phase 6 written to disk,
              the `corr` subcommand trains the PointNet++ backbone on it
-             (batch 4, 1024 points, CORR_STEPS steps), then the relaxation
-             run of phase 6 with the default `--flow_provider corr` fits
-             from that file's SMNN anchors; launch counts of each, the
-             seconds of setup_flow and of each stage;
+             (batch 4, 1024 points, CORR_STEPS steps); the operator census
+             of a training step, two trainings of CORR_TWIN_STEPS steps from
+             the same seeds that must end bit-equal (weights, optimizer and
+             generator states, losses), and a step's time with the gathers'
+             fixed-order backward against autograd's own, in turns; then the
+             relaxation run of phase 6 with the default `--flow_provider
+             corr` fits from that file's SMNN anchors; launch counts of
+             each, the seconds of setup_flow and of each stage;
   9. a toy sapien scene (LAPs of 300^2) through both stages on the card
              against the CPU: the relaxation healthy, its tree's joints
              equal and its numbers within SAPIEN_RUN_TOL; the projection's
@@ -399,6 +412,14 @@ def kernel_phase(dev):
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev)
 
+    # the edge cases draw from a generator of their own, so that the main
+    # shapes' inputs (and the work they make: sweeps, picks) stay those of
+    # earlier runs
+    edge = torch.Generator(device=dev).manual_seed(7)
+
+    def edge_randn(*shape):
+        return torch.randn(shape, generator=edge, device=dev)
+
     cano, pcs, complete = sequence(dev)
     stats = {}
 
@@ -498,6 +519,26 @@ def kernel_phase(dev):
              # the graph stage's anchors: one cloud, a mask per part
              ("per-part masks (20, 4096) -> 20",
               cano[None].expand(20, 4096, 3).contiguous(), part_masks, 20)]
+    # the kernel's layout: points a thread holds in registers (256 threads
+    # up to 2048 points, 512 past, 1024 with the coordinates in shared
+    # memory past 8192), so N at and past each boundary
+    cases += [(f"N = {n} (2, {n}) -> 300", edge_randn(2, n, 3),
+               torch.ones((2, n), dtype=torch.bool, device=dev), 300)
+              for n in (1023, 1024, 1025, 2048, 2049, 4097, 8192, 8193,
+                        cuda_fps.MAX_POINTS)]
+    one = torch.zeros((3, 1500), dtype=torch.bool, device=dev)
+    one[0, 1400] = one[1, 0] = one[2, 777] = True
+    few = torch.zeros((2, 1025), dtype=torch.bool, device=dev)
+    few[:, 1000:1010] = True
+    cases += [("every point equal (2, 1025) -> 40",
+               torch.ones((2, 1025, 3), device=dev),
+               torch.ones((2, 1025), dtype=torch.bool, device=dev), 40),
+              ("one masked point (3, 1500) -> 20", edge_randn(3, 1500, 3),
+               one, 20),
+              ("npoint past the masked count (2, 1025) -> 30",
+               edge_randn(2, 1025, 3), few, 30),
+              ("nothing masked (2, 1025) -> 5", edge_randn(2, 1025, 3),
+               torch.zeros((2, 1025), dtype=torch.bool, device=dev), 5)]
     err = 0.0
     for label, x, m, k in cases:
         got = cuda_fps.fps(x, m, k)
@@ -529,27 +570,58 @@ def kernel_phase(dev):
     zero = torch.zeros((9, 1024), device=dev)
     cold = cuda_auction.auction_solve_resident(benefit, zero, eps, 100)
     warm_price = cold[1].contiguous()
-    src_r, tgt_r = randn(2, 300, 3), randn(2, 500, 3)
-    benefit_r = (-torch.sqrt(pairwise_sqdist(src_r, tgt_r))).contiguous()
-    cases = [("cold (9, 1024, 1024)", benefit, zero),
-             ("warm (9, 1024, 1024)", benefit2, warm_price),
-             ("ragged cold (2, 300, 500)", benefit_r,
-              torch.zeros((2, 500), device=dev))]
+    def lap(b, n, m, draw=edge_randn):
+        return (-torch.sqrt(pairwise_sqdist(draw(b, n, 3), draw(b, m, 3)))
+                ).contiguous()
+
+    def zeros(b, m):
+        return torch.zeros((b, m), device=dev)
+
+    ties = (1.0, 0.1, 0.01)  # integer costs: whole-number bids
+    cases = [("cold (9, 1024, 1024)", benefit, zero, eps, 100),
+             ("warm (9, 1024, 1024)", benefit2, warm_price, eps, 100),
+             ("ragged cold (2, 300, 500)", lap(2, 300, 500, randn),
+              zeros(2, 500), eps, 100),
+             # the cluster kernel's edge cases: rows left at the bound, one
+             # row, N < M, M that splits over no count of blocks or lanes,
+             # ties across columns and rows, one slot buffer (two do not fit
+             # the shared memory), 20 elements (160 blocks, past 132 SMs)
+             ("sweep bound 3 (9, 1024, 1024)", benefit, zero, eps, 3),
+             ("N = 1 (3, 1, 7)", lap(3, 1, 7), zeros(3, 7), eps, 100),
+             ("N < M (2, 100, 1000)", lap(2, 100, 1000), zeros(2, 1000), eps,
+              100),
+             ("M % 8 != 0 (2, 500, 1001)", lap(2, 500, 1001), zeros(2, 1001),
+              eps, 100),
+             ("integer costs, ties (2, 128, 160)",
+              -torch.randint(0, 4, (2, 128, 160), generator=edge,
+                             device=dev).float(), zeros(2, 160), ties, 200),
+             ("one slot buffer (1, 72, 14450)", lap(1, 72, 14450),
+              zeros(1, 14450), eps, 100),
+             ("(20, 1024, 1024)", lap(20, 1024, 1024), zeros(20, 1024), eps,
+              100)]
     err = 0.0
-    for label, bm, p in cases:
-        got = cuda_auction.auction_solve_resident(bm, p, eps, 100)
-        ref = cuda_auction.auction_solve_resident_plain(bm, p, eps, 100)
-        err = max(err, check(f"auction {label}", got, ref, exact={0}))
+    for label, bm, p, e, sweeps in cases:
+        got = cuda_auction.auction_solve_resident(bm, p, e, sweeps)
+        torch.cuda.synchronize()
+        ref = cuda_auction.auction_solve_resident_plain(bm, p, e, sweeps)
+        err = max(err, check(f"auction {label}", got, ref, exact={0, 1}))
         unassigned = int((got[0] < 0).sum())
-        log(f"auction {label}: row_to_col exact ({unassigned} rows left "
-            f"at the sweep bound), prices within {FLOAT_TOL}")
+        if "bound" in label and unassigned == 0:
+            raise AssertionError(f"auction {label}: no row was left at the "
+                                 f"sweep bound")
+        log(f"auction {label}: row_to_col and prices exact ({unassigned} "
+            f"rows left at the sweep bound)")
     # the work depends on the data (how many rows bid, for how many
     # sweeps); what any solve of these inputs needs is one reading of the
     # benefit matrix per epsilon phase, a subtraction and a comparison each
     out = cuda_auction.auction_solve_resident(benefit2, warm_price, eps, 100)
+    # a solve no longer outlasts its wrapper's host time, so its time is a
+    # replayed graph's (device time); back to back and one call beside it
     stats["auction_solve_resident"] = dict(
         shape="(9, 1024, 1024), warm", max_abs_err=err,
-        ms=many_ms(lambda: cuda_auction.auction_solve_resident(
+        ms=graph_ms(lambda: cuda_auction.auction_solve_resident(
+            benefit2, warm_price, eps, 100), 20),
+        ms_host=many_ms(lambda: cuda_auction.auction_solve_resident(
             benefit2, warm_price, eps, 100), 10, 5),
         ms_single=median_ms(lambda: cuda_auction.auction_solve_resident(
             benefit2, warm_price, eps, 100), 10),
@@ -557,12 +629,24 @@ def kernel_phase(dev):
             benefit2, warm_price, eps, 100), 3),
         **bound(2 * len(eps) * benefit2.numel(),
                 (benefit2, warm_price, *out)))
-    stats["auction_solve_resident"]["ms_cold"] = median_ms(
+    stats["auction_solve_resident"]["ms_cold"] = graph_ms(
+        lambda: cuda_auction.auction_solve_resident(benefit, zero, eps, 100),
+        20)
+    stats["auction_solve_resident"]["ms_cold_single"] = median_ms(
         lambda: cuda_auction.auction_solve_resident(benefit, zero, eps, 100),
         10)
+    # the yardstick: the streamed kernel (a cluster of 8 blocks an element,
+    # its state in global memory) on the same inputs, past its size gate
+    for label, bm, p in (("", benefit2, warm_price), ("_cold", benefit, zero)):
+        hbm = cuda_auction._launch_resident_hbm(bm, p, eps, 100)
+        check(f"auction_hbm at (9, 1024, 1024){label}", hbm,
+              cuda_auction.auction_solve_resident_plain(bm, p, eps, 100),
+              exact={0, 1})
+        stats["auction_solve_resident"][f"ms_hbm_kernel{label}"] = graph_ms(
+            lambda: cuda_auction._launch_resident_hbm(bm, p, eps, 100), 20)
     # what the solve's time is made of: sweeps and bidding rows per phase,
     # counted by the plain version (the same auction, row_to_col equal)
-    for label, bm, p in cases[:2]:
+    for label, bm, p, _, _ in cases[:2]:
         counts = cuda_auction.auction_solve_resident_plain(
             bm, p, eps, 100, return_stats=True)[2]
         log(f"auction {label}: sweeps per phase "
@@ -954,9 +1038,10 @@ def ball_query_phase(dev, gen, stats):
                 label, (idx,), (cuda_fps.fps_plain(x, mask, npoint),),
                 exact={0}))
             took = ""
-            if timed:  # far longer than its wrapper's host time
-                ms = many_ms(lambda: cuda_fps.fps(x, mask, npoint), 20, 5)
-                took = f"; {ms:.4f} ms a call, back to back"
+            if timed:
+                t = time_kernel(lambda: cuda_fps.fps(x, mask, npoint), 20, 20)
+                took = (f"; {t['ms']:.4f} ms on the device, "
+                        f"{t['ms_host']:.4f} ms a call, back to back")
             log(f"backbone shapes ({group}): {label}: order exact{took}")
             levels.append(gather_points(x, idx).contiguous())
         # the five groupings
@@ -1600,8 +1685,125 @@ def corr_train_phase(dev, tmp, sample):
         f"{out['real_match_rate']:.3f}")
     log(f"corr: kernel launches {launches}")
     corr_step_profile(dev, model, seq_dir, norm_file)
+    corr_determinism_phase(dev, tmp, seq_dir, norm_file)
     corr_default_radii_phase(tmp, seq_dir, norm_file)
     return launches, seq_dir, norm_file, corr_path
+
+
+def autograd_index_points(points, idx):
+    """index_points as it was before its backward had a fixed order:
+    advanced indexing, whose backward is an accumulating index_put_ (float
+    atomics in arrival order on the card). Timed beside the new order."""
+    rows = torch.arange(points.shape[0], device=points.device)[:, None]
+    out = points[rows, idx.reshape(points.shape[0], -1)]
+    return out.reshape(idx.shape + points.shape[-1:])
+
+
+def autograd_gather_rows(points, idx):
+    """three_interpolate's gather as it was: torch.gather, whose backward is
+    scatter_add_ (float atomics in arrival order on the card)."""
+    return torch.gather(points, 1,
+                        idx[..., None].expand(-1, -1, points.shape[-1]))
+
+
+def tree_differences(a, b, path=""):
+    """Paths at which two nested dicts / lists of arrays differ."""
+    if isinstance(a, dict):
+        if a.keys() != b.keys():
+            return [path or "/"]
+        return [d for k in a for d in tree_differences(a[k], b[k],
+                                                       f"{path}/{k}")]
+    if isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            return [path]
+        return [d for i, (x, y) in enumerate(zip(a, b))
+                for d in tree_differences(x, y, f"{path}/{i}")]
+    return [] if np.array_equal(np.asarray(a), np.asarray(b)) else [path]
+
+
+CORR_TWIN_STEPS = 40
+
+
+def corr_determinism_phase(dev, tmp, seq_dir, norm_file):
+    """The backbone's training repeats on the card: a census of one training
+    step (forward, loss, backward, Adam, BatchNorm statistics) under
+    use_deterministic_algorithms(True, warn_only=True); two trainings of
+    CORR_TWIN_STEPS steps from the same seed, generator and frames must end
+    with equal weights, optimizer states, generator states and loss
+    histories, bit for bit; and a training step's time with the gathers'
+    fixed-order backward and with autograd's own, in turns (new, old, old,
+    new)."""
+    import pickle
+
+    from reart_tpu_torch import cli
+    from reart_tpu_torch.models import pointnet2
+    from reart_tpu_torch.ops import interpolate, sampling
+    from reart_tpu_torch.train import corr as tc
+
+    args = cli.build_parser().parse_args(
+        ["corr", "--seq_path", seq_dir, "--normalize_file", norm_file])
+    frames = torch.as_tensor(cli._corr_training_frames(args)[0], device=dev)
+    cfg = tc.CorrTrainConfig(batch=4, n_points=1024,
+                             pos_radius=float(CORR_RADII[1]),
+                             neg_radius=float(CORR_RADII[3]),
+                             steps=CORR_TWIN_STEPS,
+                             dispatch_chunk=CORR_TWIN_STEPS)
+    model = pointnet2.PointNet2Msg2(
+        device=dev, generator=torch.Generator().manual_seed(0))
+    opt = torch.optim.Adam(model.parameters(), lr=cfg.lr)
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def step():
+        src, tgt, gt_pos, scale = tc.synth_pair(
+            tc.draw_pairs(gen, frames.shape[0], frames.shape[1], cfg),
+            frames, cfg)
+        return tc._train_step(model, opt, cfg, src, tgt, gt_pos, scale)
+
+    determinism_census("corr (one training step)", step)
+
+    payloads = []
+    for i in range(2):
+        path = os.path.join(tmp, f"corr_twin_{i}.pkl")
+        tc.train_corr(0, frames, cfg, checkpoint_path=path, device=dev)
+        with open(path, "rb") as f:
+            payloads.append(pickle.load(f))
+    differ = tree_differences(*payloads)
+    if differ:
+        raise AssertionError(f"corr: two trainings of {CORR_TWIN_STEPS} "
+                             f"steps from the same seeds differ at "
+                             f"{len(differ)} entries, first {differ[:4]}")
+    log(f"corr: two trainings of {CORR_TWIN_STEPS} steps from the same "
+        f"seeds give the same weights ({len(payloads[0]['model'])} tensors), "
+        f"optimizer state, generator state and losses bit for bit "
+        f"(loss {payloads[0]['losses'][0]:.4f} -> "
+        f"{payloads[0]['losses'][-1]:.4f})")
+
+    def timed(calls=20):
+        step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            step()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / calls
+
+    times = {"fixed order": [], "autograd's": []}
+    for which in ("fixed order", "autograd's", "autograd's", "fixed order"):
+        old = (pointnet2.index_points, interpolate.gather_rows)
+        if which == "autograd's":
+            pointnet2.index_points = autograd_index_points
+            interpolate.gather_rows = autograd_gather_rows
+        try:
+            times[which].append(timed())
+        finally:
+            pointnet2.index_points, interpolate.gather_rows = old
+    if (pointnet2.index_points is not sampling.index_points
+            or interpolate.gather_rows is not sampling.gather_rows):
+        raise AssertionError("corr: the gathers were not put back")
+    log("corr: a training step (batch 4 x 1024 points, host clock over 20) "
+        "with the gathers' backward in "
+        + ", ".join(f"{k} {' '.join(f'{t:.2f}' for t in v)} ms"
+                    for k, v in times.items()))
 
 
 def corr_default_radii_phase(tmp, seq_dir, norm_file, steps=40):
@@ -1871,7 +2073,8 @@ class ProfileWindows:
 
 def log_fit_window(what, prof, iters, wall_s):
     """A fit window's device time: busy and idle share, ms per iteration,
-    and the two neighbour kernels' ms per iteration by kernel name."""
+    the two neighbour kernels' ms per iteration, and the FPS and resident
+    auction kernels' ms in the window, by kernel name."""
     by_name = device_time_by_name(prof)
     wall_ms = 1e3 * wall_s / iters
     busy_ms = sum(by_name.values()) / 1e3 / iters
@@ -1880,30 +2083,32 @@ def log_fit_window(what, prof, iters, wall_s):
             f"device activity); {wall_ms:.3f} ms of wall clock an iteration")
         return
 
-    def named(frag):
-        return sum(t for k, t in by_name.items() if frag in k) / 1e3 / iters
+    def named(*frags):  # a demangled or a mangled name
+        return sum(t for k, t in by_name.items()
+                   if any(f in k for f in frags)) / 1e3 / iters
 
     log(f"{what}: {wall_ms:.4f} ms of wall clock and {busy_ms:.4f} ms of "
         f"device time an iteration, device busy {100 * busy_ms / wall_ms:.1f}"
         f"%, idle {100 * max(0.0, 1 - busy_ms / wall_ms):.1f}% (under the "
         f"profiler); blend3 {named('blend3_kernel'):.4f} ms, "
         f"nn1_bidir_coords {named('nn1_bidir_'):.4f} ms (scan and decode) an "
-        f"iteration")
+        f"iteration; fps {iters * named('fps_kernel'):.4f} ms and the "
+        f"resident auction "
+        f"{iters * named('::auction_kernel', '14auction_kernel'):.4f} ms in "
+        f"the "
+        f"window")
     log_profile(what, prof, iters, wall_ms)
 
 
-def nondeterminism_census(cano, pcs, flow_ctx, make_model):
-    """One recon and one assign iteration of the nao-scale fit under
-    torch.use_deterministic_algorithms(True, warn_only=True), with every
-    ATen operator recorded: the warnings name the operators that have no
-    deterministic implementation; the operators of the scatter, gather and
-    put families are the ones that the flag would otherwise swap silently.
-    The flag is put back as it was."""
+def determinism_census(what, fn):
+    """Run fn() once under torch.use_deterministic_algorithms(True,
+    warn_only=True), with every ATen operator recorded: the warnings name
+    the operators that have no deterministic implementation; the operators
+    of the scatter, gather and put families are the ones that the flag
+    would otherwise swap silently. The flag is put back as it was."""
     import warnings
 
     from torch.utils._python_dispatch import TorchDispatchMode
-
-    from reart_tpu_torch.train import FitConfig, fit_base
 
     class Census(TorchDispatchMode):
         def __init__(self):
@@ -1914,8 +2119,6 @@ def nondeterminism_census(cano, pcs, flow_ctx, make_model):
             self.names.add(str(func.overloadpacket))
             return func(*args, **(kwargs or {}))
 
-    cfg = FitConfig(n_iter=2, use_assign_loss=True, use_flow_loss=True,
-                    assign_iter=1, assign_gap=1, downsample=4)
     was = torch.are_deterministic_algorithms_enabled()
     was_warn = torch.is_deterministic_algorithms_warn_only_enabled()
     torch.use_deterministic_algorithms(True, warn_only=True)
@@ -1923,7 +2126,7 @@ def nondeterminism_census(cano, pcs, flow_ctx, make_model):
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             with Census() as census:
-                fit_base(make_model(0), cfg, cano, pcs, flow_ctx=flow_ctx)
+                fn()
                 torch.cuda.synchronize()
     finally:
         torch.use_deterministic_algorithms(was, warn_only=was_warn)
@@ -1935,10 +2138,10 @@ def nondeterminism_census(cano, pcs, flow_ctx, make_model):
                 "cumsum", "segment_reduce", "sort", "searchsorted")
     suspects = sorted(n for n in census.names
                       if any(f in n for f in families))
-    log(f"fit determinism census (one recon and one assign iteration): "
-        f"{len(census.names)} ATen operators; flagged without a "
-        f"deterministic implementation: {flagged or 'none'}; of the "
-        f"scatter, gather, index and sort families: {suspects}")
+    log(f"{what} determinism census: {len(census.names)} ATen operators; "
+        f"flagged without a deterministic implementation: "
+        f"{flagged or 'none'}; of the scatter, gather, index and sort "
+        f"families: {suspects}")
     return flagged
 
 
@@ -2015,7 +2218,10 @@ def fit_phase(dev):
         f"{(cfg.n_iter - n_recon) / assign_s:.2f} iters/s")
     log(f"fit: kernel launches {launches}")
 
-    windows = ProfileWindows({"recon": (10, 20), "assign": (40, 50)})
+    # the assignment phase's start (iterations 29-30) holds the assign
+    # context's two FPS calls and the first, cold, solve
+    windows = ProfileWindows({"recon": (10, 20), "assign start": (29, 31),
+                              "assign": (40, 50)})
     again = run(windows=windows)
     differ = [k for k in hist if not torch.equal(hist[k], again[k])]
     if differ:
@@ -2026,9 +2232,16 @@ def fit_phase(dev):
     log(f"fit: a second run from the same seeds gives the same history bit "
         f"for bit ({', '.join(hist)})")
     for label, (prof, wall_s) in windows.done.items():
-        log_fit_window(f"fit: {label} window, 10 iterations", prof, 10,
-                       wall_s)
-    nondeterminism_census(cano, pcs, flow_ctx, make_model)
+        start, stop = windows.windows[label]
+        log_fit_window(f"fit: {label} window, {stop - start} iterations",
+                       prof, stop - start, wall_s)
+    # one recon and one assign iteration
+    census_cfg = FitConfig(n_iter=2, use_assign_loss=True,
+                           use_flow_loss=True, assign_iter=1, assign_gap=1,
+                           downsample=4)
+    determinism_census("fit (one recon and one assign iteration)",
+                       lambda: fit_base(make_model(0), census_cfg, cano, pcs,
+                                        flow_ctx=flow_ctx))
     return launches
 
 

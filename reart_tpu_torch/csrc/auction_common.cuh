@@ -8,8 +8,9 @@
 //     whatever the order of arrival. 0 means "no bid";
 //   * the warp-per-row top-2 of benefit - price: a lane walks its columns in
 //     ascending order with strict '>' (the lowest column wins a tie inside a
-//     lane), and the 32 lanes merge by shuffles under "larger value, then
-//     lower column", which does not depend on the order of the merge.
+//     lane), and the 32 lanes merge under "larger value, then lower column",
+//     which does not depend on the order of the merge (by shuffles, or by
+//     warp reductions of order-preserving bits).
 
 #pragma once
 
@@ -88,11 +89,30 @@ __device__ __forceinline__ void top2_warp_merge(float& b1, int& j1,
   }
 }
 
-// Top-2 of row[j] - price[j] over j < m by one warp; the result is lane 0's.
-// j1 is INT_MAX when m == 0.
-__device__ __forceinline__ void top2_row(const float* __restrict__ row,
-                                         const float* price, int m, int lane,
-                                         float& b1, int& j1, float& b2) {
+// The same result as top2_warp_merge in every lane, from three warp
+// reductions (redux.sync) of order-preserving bits: the best value, the
+// lowest column among the lanes holding it, then the best over the other
+// columns (the second value of the lane that holds that column, the best of
+// every other lane). Adding +0.0f makes -0 and +0 one key, as they are one
+// value to top2_take's comparisons; a bid (b1 - b2) + eps does not depend
+// on the sign of a zero.
+__device__ __forceinline__ void top2_warp_redux(float& b1, int& j1,
+                                                float& b2) {
+  const uint32_t k1 = ordered_bits(b1 + 0.0f);
+  const uint32_t top = __reduce_max_sync(0xffffffffu, k1);
+  const int j = static_cast<int>(__reduce_min_sync(
+      0xffffffffu, k1 == top ? static_cast<uint32_t>(j1) : 0xffffffffu));
+  const uint32_t k2 = ordered_bits((j1 == j ? b2 : b1) + 0.0f);
+  b2 = from_ordered(__reduce_max_sync(0xffffffffu, k2));
+  b1 = from_ordered(top);
+  j1 = j;
+}
+
+// A lane's part of the top-2 of row[j] - price[j] over j < m: the columns
+// j = lane, lane + 32, ..., ascending. j1 is INT_MAX when the lane has none.
+__device__ __forceinline__ void top2_lane(const float* __restrict__ row,
+                                          const float* price, int m, int lane,
+                                          float& b1, int& j1, float& b2) {
   b1 = -INFINITY;
   b2 = -INFINITY;
   j1 = INT_MAX;
@@ -100,6 +120,37 @@ __device__ __forceinline__ void top2_row(const float* __restrict__ row,
   for (int j = lane; j < m; j += 32) {
     top2_take(b1, j1, b2, row[j] - price[j], j);
   }
+}
+
+// The same with 16-byte loads; needs m % 4 == 0 and both pointers 16-byte
+// aligned. A lane takes columns 4q..4q+3 for q = lane, lane + 32, ...:
+// ascending, as top2_take wants.
+__device__ __forceinline__ void top2_lane_vec(const float* __restrict__ row,
+                                              const float* price, int m,
+                                              int lane, float& b1, int& j1,
+                                              float& b2) {
+  const float4* row4 = reinterpret_cast<const float4*>(row);
+  const float4* price4 = reinterpret_cast<const float4*>(price);
+  b1 = -INFINITY;
+  b2 = -INFINITY;
+  j1 = INT_MAX;
+#pragma unroll 8
+  for (int q = lane; q < (m >> 2); q += 32) {
+    const float4 x = __ldg(row4 + q);
+    const float4 p = price4[q];
+    top2_take(b1, j1, b2, x.x - p.x, 4 * q);
+    top2_take(b1, j1, b2, x.y - p.y, 4 * q + 1);
+    top2_take(b1, j1, b2, x.z - p.z, 4 * q + 2);
+    top2_take(b1, j1, b2, x.w - p.w, 4 * q + 3);
+  }
+}
+
+// Top-2 of row[j] - price[j] over j < m by one warp; the result is lane 0's.
+// j1 is INT_MAX when m == 0.
+__device__ __forceinline__ void top2_row(const float* __restrict__ row,
+                                         const float* price, int m, int lane,
+                                         float& b1, int& j1, float& b2) {
+  top2_lane(row, price, m, lane, b1, j1, b2);
   top2_warp_merge(b1, j1, b2);
 }
 

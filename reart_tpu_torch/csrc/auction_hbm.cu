@@ -55,27 +55,13 @@ constexpr int kCluster = 8;
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
 
-// Top-2 of row[j] - price[j] by one warp with 16-byte loads; needs m % 4 == 0
-// and both pointers 16-byte aligned. A lane takes columns 4q..4q+3 for
-// q = lane, lane + 32, ...: ascending, as auction::top2_row wants.
+// Top-2 of row[j] - price[j] by one warp with 16-byte loads; the result is
+// lane 0's.
 __device__ __forceinline__ void top2_row_vec(const float* __restrict__ row,
                                              const float* price, int m,
                                              int lane, float& b1, int& j1,
                                              float& b2) {
-  const float4* row4 = reinterpret_cast<const float4*>(row);
-  const float4* price4 = reinterpret_cast<const float4*>(price);
-  b1 = -INFINITY;
-  b2 = -INFINITY;
-  j1 = INT_MAX;
-#pragma unroll 4
-  for (int q = lane; q < (m >> 2); q += 32) {
-    const float4 x = __ldg(row4 + q);
-    const float4 p = price4[q];
-    auction::top2_take(b1, j1, b2, x.x - p.x, 4 * q);
-    auction::top2_take(b1, j1, b2, x.y - p.y, 4 * q + 1);
-    auction::top2_take(b1, j1, b2, x.z - p.z, 4 * q + 2);
-    auction::top2_take(b1, j1, b2, x.w - p.w, 4 * q + 3);
-  }
+  auction::top2_lane_vec(row, price, m, lane, b1, j1, b2);
   auction::top2_warp_merge(b1, j1, b2);
 }
 

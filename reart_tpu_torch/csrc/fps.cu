@@ -8,17 +8,30 @@
 // to the lowest index, so the order is bit-identical to the plain loop
 // (reart_tpu/ops/sampling.py: _fps_loop).
 //
-// What bounds it on an H100: latency. The npoint steps are sequential, and
-// each is a block-wide argmax over N values (two barriers); the arithmetic
-// is ~10 instructions per point per step.
+// What bounds it on an H100: latency. The npoint picks are sequential, and
+// each is a block-wide argmax over N values; the arithmetic is ~12
+// instructions per point per pick (8 for the distance, a minimum, a
+// compare and two selects), which one SM issues for N = 4096 in ~400
+// cycles, and the argmax across warps adds a barrier and two warp
+// reductions. The operations bound of the whole card is out of reach.
 //
-// Design: one 1024-thread block per cloud. The cloud and the running
-// distances live in shared memory (16 bytes a point, so N <= 14528 within
-// the 227 KB a block may use). Masked-out points hold -inf as their running
-// distance, which fminf never raises, so they never win. The argmax is a
-// warp shuffle reduction then one warp over the 32 warp results, comparing
-// (value, index) so equal values keep the lower index. Built with
-// -fmad=false so the distance rounds as the plain version's.
+// Design: one block per cloud (256 threads up to 2048 points, 512 past).
+// Each thread keeps its points (k = tid + i * threads, ascending in i) and
+// their running distances in registers, a fixed count per thread chosen by
+// template, so a pick reads no shared memory but the winner's coordinates
+// (one broadcast load from a copy of the cloud in shared memory). Past the
+// registers' capacity (N > 8192) the coordinates come from that copy and
+// only the distances stay in registers. A cluster of blocks a cloud was
+// slower on the card: a cluster barrier costs many block barriers.
+// Masked-out points and the padding past N hold -inf, which fminf never
+// raises; as keys they map below every real distance (>= +0), so they never
+// win. The argmax is exact in two redux.sync steps a warp: the largest key
+// (__reduce_max_sync), then the lowest index among the lanes that hold it
+// (__reduce_min_sync), whatever the layout of points over lanes. Each warp
+// writes its (key, index) to a slot of a double-buffered array, and after
+// the pick's only __syncthreads every warp reduces the slots itself, so no
+// second barrier broadcasts the winner. Built with -fmad=false so the
+// distance rounds as the plain version's.
 
 #include <climits>
 #include <cuda_runtime.h>
@@ -26,109 +39,160 @@
 
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr int kWarps = kThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
+// a block's shared memory (227 KB) less the slots: 16 bytes a point
+constexpr int kMaxPoints = 14336;
 
-__device__ __forceinline__ void argmax_merge(float& v, int& i, float ov,
-                                             int oi) {
-  if (ov > v || (ov == v && oi < i)) {
-    v = ov;
-    i = oi;
-  }
+// A running distance as a key that orders like it: -inf (masked, padding)
+// maps to 0, a real distance d >= +0 (a sum of squares, never -0) to its
+// bits + 1.
+__device__ __forceinline__ unsigned dist_key(float d) {
+  return d >= 0.f ? __float_as_uint(d) + 1u : 0u;
 }
 
-__device__ __forceinline__ void warp_argmax(float& v, int& i) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_down_sync(0xffffffffu, v, off);
-    const int oi = __shfl_down_sync(0xffffffffu, i, off);
-    argmax_merge(v, i, ov, oi);
-  }
+// The warp's largest key, and the lowest index among the lanes holding it.
+__device__ __forceinline__ void warp_best(unsigned& key, unsigned& idx) {
+  const unsigned top = __reduce_max_sync(kFull, key);
+  idx = __reduce_min_sync(kFull, key == top ? idx : UINT_MAX);
+  key = top;
 }
 
+// The block's best (key, index): every thread returns the index. One
+// barrier; `slot` must not be written again before every warp has passed
+// the next call's barrier (the caller alternates two slot arrays).
+template <int kWarps>
+__device__ __forceinline__ unsigned block_best(uint2* slot, unsigned key,
+                                               unsigned idx, int lane,
+                                               int warp) {
+  warp_best(key, idx);
+  if (lane == 0) slot[warp] = make_uint2(key, idx);
+  __syncthreads();
+  const uint2 s = lane < kWarps ? slot[lane] : make_uint2(0u, UINT_MAX);
+  key = s.x;
+  idx = s.y;
+  warp_best(key, idx);
+  return idx;
+}
+
+template <int kThreads, int kPer, bool kRegs>
 __global__ void __launch_bounds__(kThreads)
 fps_kernel(const float* __restrict__ xyz, const bool* __restrict__ mask,
            int n, int npoint, long long* __restrict__ out) {
-  extern __shared__ float smem[];
-  float* sx = smem;
-  float* sy = sx + n;
-  float* sz = sy + n;
-  float* sd = sz + n;
-  __shared__ float red_v[kWarps];
-  __shared__ int red_i[kWarps];
-  __shared__ int s_far;
+  constexpr int kWarps = kThreads / 32;
+  extern __shared__ float4 s_pt[];  // (N,) x, y, z
+  __shared__ uint2 s_slot[2][kWarps];
 
-  const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  xyz += (size_t)b * n * 3;
-  mask += (size_t)b * n;
-  out += (size_t)b * npoint;
+  xyz += (size_t)blockIdx.x * n * 3;
+  mask += (size_t)blockIdx.x * n;
+  out += (size_t)blockIdx.x * npoint;
 
-  if (tid == 0) s_far = INT_MAX;
-  __syncthreads();
-  int first = INT_MAX;
-  for (int k = tid; k < n; k += kThreads) {
-    sx[k] = xyz[3 * k];
-    sy[k] = xyz[3 * k + 1];
-    sz[k] = xyz[3 * k + 2];
-    const bool in = mask[k];
-    sd[k] = in ? INFINITY : -INFINITY;
-    if (in && k < first) first = k;
+  float px[kRegs ? kPer : 1], py[kRegs ? kPer : 1], pz[kRegs ? kPer : 1];
+  float pd[kPer];
+  unsigned first = UINT_MAX;
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int k = tid + i * kThreads;
+    float x = 0.f, y = 0.f, z = 0.f;
+    bool in = false;
+    if (k < n) {
+      x = xyz[3 * k];
+      y = xyz[3 * k + 1];
+      z = xyz[3 * k + 2];
+      in = mask[k];
+      s_pt[k] = make_float4(x, y, z, 0.f);
+    }
+    if (kRegs) {
+      px[i] = x;
+      py[i] = y;
+      pz[i] = z;
+    }
+    pd[i] = in ? INFINITY : -INFINITY;
+    if (in && first == UINT_MAX) first = k;
   }
-  if (first != INT_MAX) atomicMin(&s_far, first);
-  __syncthreads();
-  if (tid == 0 && s_far == INT_MAX) s_far = 0;
-  __syncthreads();
+  // the first masked index, 0 when nothing is masked
+  unsigned far = block_best<kWarps>(s_slot[1], first != UINT_MAX, first,
+                                    lane, warp);
+  if (far == UINT_MAX) far = 0;
 
   for (int it = 0; it < npoint; ++it) {
-    const int far = s_far;
     if (tid == 0) out[it] = far;
-    const float cx = sx[far], cy = sy[far], cz = sz[far];
+    const float4 c = s_pt[far];
     float bv = -INFINITY;
-    int bi = INT_MAX;
-    for (int k = tid; k < n; k += kThreads) {
-      const float dx = sx[k] - cx;
-      const float dy = sy[k] - cy;
-      const float dz = sz[k] - cz;
+    unsigned bi = tid;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int k = tid + i * kThreads;
+      float x, y, z;
+      if (kRegs) {
+        x = px[i];
+        y = py[i];
+        z = pz[i];
+      } else {
+        const float4 p = s_pt[k < n ? k : far];
+        x = p.x;
+        y = p.y;
+        z = p.z;
+      }
+      const float dx = x - c.x;
+      const float dy = y - c.y;
+      const float dz = z - c.z;
       float d = dx * dx + dy * dy;
       d = d + dz * dz;
-      const float nd = fminf(sd[k], d);
-      sd[k] = nd;
-      // k rises within a thread: '>' keeps the first maximum; the
-      // bi == INT_MAX term lets an all -inf row still name its lowest index
-      if (nd > bv || bi == INT_MAX) {
+      const float nd = fminf(pd[i], d);
+      pd[i] = nd;
+      // k rises with i: '>' keeps a thread's first maximum
+      if (nd > bv) {
         bv = nd;
         bi = k;
       }
     }
-    warp_argmax(bv, bi);
-    if (lane == 0) {
-      red_v[warp] = bv;
-      red_i[warp] = bi;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      bv = red_v[lane];
-      bi = red_i[lane];
-      warp_argmax(bv, bi);
-      if (lane == 0) s_far = bi;
-    }
-    __syncthreads();
+    far = block_best<kWarps>(s_slot[it & 1], dist_key(bv), bi, lane, warp);
   }
+}
+
+template <int kThreads, int kPer, bool kRegs>
+cudaError_t launch(const float* xyz, const bool* mask, int batch, int n,
+                   int npoint, long long* out, cudaStream_t stream) {
+  auto kernel = fps_kernel<kThreads, kPer, kRegs>;
+  const size_t smem = 16 * (size_t)n;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<batch, kThreads, smem, stream>>>(xyz, mask, n, npoint, out);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int reart_fps(const float* xyz, const bool* mask, int batch, int n,
                          int npoint, long long* out, void* stream) {
-  const size_t smem = 16 * (size_t)n;
-  cudaError_t err = cudaFuncSetAttribute(
-      fps_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  fps_kernel<<<batch, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      xyz, mask, n, npoint, out);
-  return static_cast<int>(cudaGetLastError());
+  if (batch < 1 || n < 1 || n > kMaxPoints || npoint < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto s = static_cast<cudaStream_t>(stream);
+  // the fewest points a thread that cover N, all in registers: 256 threads
+  // up to 2048 points, 512 past (measured on an H100: the cross-warp step
+  // against the points a thread walks); past 8192, 1024 threads with the
+  // running distances in registers and the coordinates in shared memory
+  cudaError_t err;
+  if (n <= 256) {
+    err = launch<256, 1, true>(xyz, mask, batch, n, npoint, out, s);
+  } else if (n <= 512) {
+    err = launch<256, 2, true>(xyz, mask, batch, n, npoint, out, s);
+  } else if (n <= 1024) {
+    err = launch<256, 4, true>(xyz, mask, batch, n, npoint, out, s);
+  } else if (n <= 2048) {
+    err = launch<256, 8, true>(xyz, mask, batch, n, npoint, out, s);
+  } else if (n <= 4096) {
+    err = launch<512, 8, true>(xyz, mask, batch, n, npoint, out, s);
+  } else if (n <= 8192) {
+    err = launch<512, 16, true>(xyz, mask, batch, n, npoint, out, s);
+  } else {
+    err = launch<1024, 16, false>(xyz, mask, batch, n, npoint, out, s);
+  }
+  return static_cast<int>(err);
 }

@@ -141,6 +141,16 @@ def auction_solve_resident_hbm(benefit: torch.Tensor, price: torch.Tensor,
             f"{name}: a {n}x{m} LAP is outside the streamed window (1024^2 < "
             f"N*M <= 2048^2, M <= {_MAX_SMEM // 4}); "
             f"ops.assignment.auction_lap picks the kernel by size")
+    return _launch_resident_hbm(benefit, price, eps_list, max_sweeps,
+                                return_stats)
+
+
+def _launch_resident_hbm(benefit, price, eps_list, max_sweeps: int,
+                         return_stats: bool = False):
+    """The streamed kernel's launch on checked CUDA inputs, at any N <= M
+    with 4 M bytes of prices in a block's shared memory; the wrapper above
+    gates it to its window."""
+    b, n, m = benefit.shape
     dev = benefit.device
     r2c = torch.empty((b, n), dtype=torch.int64, device=dev)
     price_out = torch.empty((b, m), dtype=torch.float32, device=dev)
@@ -160,7 +170,7 @@ def auction_solve_resident_hbm(benefit: torch.Tensor, price: torch.Tensor,
             ctypes.cast(eps_arr, ctypes.c_void_p), len(eps_list),
             int(max_sweeps), r2c.data_ptr(), price_out.data_ptr(), key, c2r,
             assigned, owned, stats.data_ptr(), _build.stream_of(benefit))
-    _build.check_launch(name, err)
+    _build.check_launch("auction_solve_resident_hbm", err)
     auction_solve_resident_hbm.launches += 1
     return (r2c, price_out, stats) if return_stats else (r2c, price_out)
 

@@ -12,6 +12,7 @@ import torch
 
 from reart_tpu_torch.ops.cuda_nn import blend3, nn_topk
 from reart_tpu_torch.ops.distance import knn
+from reart_tpu_torch.ops.sampling import gather_rows
 
 
 def three_interpolate(xyz_query: torch.Tensor, xyz_ref: torch.Tensor,
@@ -21,17 +22,16 @@ def three_interpolate(xyz_query: torch.Tensor, xyz_ref: torch.Tensor,
     weights 1 / (sqdist + eps), normalised. The neighbours come from the
     k-NN kernel (not differentiable); the squared distances are recomputed
     from the gathered points, so gradients reach both clouds and the
-    features alike on the CPU and on the card."""
+    features alike on the CPU and on the card, through `gather_rows`, whose
+    backward adds in the same order on both."""
     k = min(3, xyz_ref.shape[-2])
     _, idx = nn_topk(xyz_query, xyz_ref, k)                    # (..., N, k)
-    flat = idx.reshape(idx.shape[:-2] + (-1,))
+    flat = idx.reshape((-1, idx.shape[-2] * k))
 
     def gather(ref):                        # (..., S, C) -> (..., N, k, C)
-        c = ref.shape[-1]
         ref = ref.expand(idx.shape[:-2] + ref.shape[-2:])
-        out = torch.gather(ref, -2, flat[..., None].expand(
-            flat.shape + (c,)))
-        return out.reshape(idx.shape + (c,))
+        out = gather_rows(ref.reshape((-1,) + ref.shape[-2:]), flat)
+        return out.reshape(idx.shape + ref.shape[-1:])
 
     diff = xyz_query[..., None, :] - gather(xyz_ref)
     d = torch.sum(diff * diff, dim=-1)

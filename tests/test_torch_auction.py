@@ -160,6 +160,43 @@ def test_resident_plain_marks_unassigned_rows():
     assert (r2c < 0).any() and (r2c < 64).all()
 
 
+RESIDENT_EDGE_CASES = {
+    # seed, shape, integer costs (exact ties across columns and rows)
+    "m_not_a_multiple_of_8": (21, (2, 40, 101), False),
+    "one_row": (22, (3, 1, 37), False),
+    "fewer_rows_than_columns": (23, (2, 20, 300), False),
+    "ties_everywhere": (24, (2, 48, 64), True),
+}
+
+
+@pytest.mark.parametrize("case", list(RESIDENT_EDGE_CASES))
+def test_resident_plain_matches_pallas_on_edge_cases(case):
+    """The plain version of the resident kernel (which the card's cluster
+    kernel equals bit for bit) against the JAX package's resident Pallas
+    kernel in interpret mode, at the sizes the cluster layout makes risky:
+    M that does not split evenly, one row, N < M, and ties everywhere."""
+    from reart_tpu.ops.pallas_auction import auction_solve_resident
+
+    seed, shape, ties = RESIDENT_EDGE_CASES[case]
+    rng = np.random.RandomState(seed)
+    if ties:
+        cost = rng.randint(0, 4, shape).astype(np.float32)
+        eps = (1.0, 0.1, 0.01)
+    else:
+        cost = rng.rand(*shape).astype(np.float32)
+        eps = (1e-2, 1e-3)
+    price = np.zeros((shape[0], shape[2]), np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        r_ref, p_ref = auction_solve_resident(jnp.asarray(-cost),
+                                              jnp.asarray(price), eps, 200)
+    r, p = cuda_auction.auction_solve_resident(
+        torch.from_numpy(-cost), torch.from_numpy(price), eps, 200)
+    np.testing.assert_array_equal(r.numpy(), np.asarray(r_ref))
+    np.testing.assert_allclose(p.numpy(), np.asarray(p_ref), rtol=1e-5,
+                               atol=1e-6)
+    assert (r.numpy() >= 0).all()
+
+
 def test_assignment_cost_matches_jax():
     rng = np.random.RandomState(7)
     cost = rng.rand(2, 16, 20).astype(np.float32)

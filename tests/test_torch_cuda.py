@@ -130,6 +130,36 @@ def test_fps_masks_and_ties(cuda):
     assert torch.equal(got.cpu(), cuda_fps.fps_plain(xyz, mask, 32))
 
 
+@pytest.mark.parametrize("n", [1023, 1024, 1025, 2048, 2049, 4097, 8192,
+                               8193])
+def test_fps_register_layout_boundaries(cuda, n):
+    """N at and past the boundaries of the kernel's layout: points a thread
+    holds in registers (256 threads up to 2048 points, 512 past, the
+    coordinates in shared memory past 8192)."""
+    xyz = _randn(n + 1, 2, n, 3)
+    mask = torch.ones((2, n), dtype=torch.bool)
+    got = cuda_fps.fps(xyz.to(cuda), mask.to(cuda), 300)
+    assert torch.equal(got.cpu(), cuda_fps.fps_plain(xyz, mask, 300))
+
+
+@pytest.mark.parametrize("kind", ["all_equal", "single_point_mask",
+                                  "npoint_past_masked_count"])
+def test_fps_degenerate_clouds_and_masks(cuda, kind):
+    n = 4096
+    xyz = _randn(3, 2, n, 3)
+    mask = torch.ones((2, n), dtype=torch.bool)
+    if kind == "all_equal":
+        xyz[:] = 0.25
+    elif kind == "single_point_mask":
+        mask[:] = False
+        mask[0, 4000] = mask[1, 0] = True
+    else:
+        mask[:] = False
+        mask[:, 3000:3040] = True
+    got = cuda_fps.fps(xyz.to(cuda), mask.to(cuda), 64)
+    assert torch.equal(got.cpu(), cuda_fps.fps_plain(xyz, mask, 64))
+
+
 def test_fps_rejects_too_many_points(cuda):
     xyz = torch.zeros((1, cuda_fps.MAX_POINTS + 1, 3), device=cuda)
     mask = torch.ones(xyz.shape[:2], dtype=torch.bool, device=cuda)
@@ -152,6 +182,25 @@ def test_auction_sizes_and_bound(cuda, b, n, m, sweeps):
     ref = cuda_auction.auction_solve_resident_plain(benefit, price, EPS,
                                                     sweeps)
     _same(got, ref, exact={0})
+
+
+@pytest.mark.parametrize("b,n,m,sweeps", [
+    (3, 1, 7, 100), (2, 100, 1000, 100), (2, 500, 1001, 100),
+    (2, 300, 1004, 100), (9, 1024, 1024, 3), (1, 72, 14450, 100),
+    (20, 512, 512, 100)])
+def test_auction_cluster_edge_cases(cuda, b, n, m, sweeps):
+    """The cluster kernel's edge cases, prices exact too: one row, N < M, M
+    that splits over no count of blocks or lanes, rows left at the sweep
+    bound, one slot buffer (two do not fit the shared memory), 20 elements
+    (160 blocks, more than the card's 132 SMs)."""
+    src, tgt = _randn(n + 7, b, n, 3), _randn(m + 7, b, m, 3)
+    benefit = -torch.cdist(src, tgt)
+    price = torch.zeros((b, m))
+    got = cuda_auction.auction_solve_resident(
+        benefit.to(cuda), price.to(cuda), EPS, sweeps)
+    ref = cuda_auction.auction_solve_resident_plain(benefit, price, EPS,
+                                                    sweeps)
+    _same(got, ref, exact={0, 1})
 
 
 def test_auction_integer_costs_tie_everywhere(cuda):
