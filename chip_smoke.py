@@ -8,16 +8,26 @@ Phases, each of which raises on failure (exit code != 0):
   2. build:  compiles reart_tpu_torch/csrc/*.cu (sm_90a) into the kernel
              library and native/lap.cpp with the host compiler, and prints
              the build time and ptxas resource lines;
-  3. kernels vs plain: each of the twelve kernels against its plain PyTorch
-             version on the card, at the main paths' shapes plus ragged and
-             tie cases (for blend3 and nn1_bidir_coords also ties across
+  3. kernels vs plain: each of the thirteen kernels against its plain
+             PyTorch version on the card, at the main paths' shapes plus
+             ragged and tie cases (for blend3 and nn1_bidir_coords also ties
+             across
              their slices and tiles, sizes past them, M = 3; for fps N at
              and past the boundaries of its register layout, every point
              equal, one masked point, more picks than masked points; for the
              resident auction, prices exact too, the sweep bound, N = 1,
              N < M, M % 8 != 0, integer-cost ties, one slot buffer, 20
              elements, and the streamed kernel timed on its inputs as a
-             yardstick); indices and
+             yardstick; for the large kernel, the one launch of a LAP past
+             2048^2, row_to_col, prices and stats exact at the energy's
+             presolve (9, 4096, 4096) of phase 3's clouds and of clouds with
+             400-sweep tails, the engine's dense LAP (7, 4096, 4096) cold and
+             warm, the sweep bound, N < M, M % 4 != 0, integer-cost ties,
+             B = 1, 20 elements and one slot buffer, auction_lap's default
+             route against the sweep route, its ms beside the sweep route's
+             and the resident kernel's at the same shapes, the bidding
+             rows per phase, and its ms at (9, 2048, 2048) beside the
+             streamed kernel's); indices and
              coordinates exact, floats within FLOAT_TOL; ms of many launches
              per event pair (for the two kernels too small to fill the
              queue: of a replayed CUDA graph of many launches, which is
@@ -50,7 +60,11 @@ Phases, each of which raises on failure (exit code != 0):
              warn_only=True);
   6. the run: the relaxation run at full width (T=10, N=4096, 20 parts) on
              an articulated scene made in memory, with every kernel's
-             launch count and the seconds of each finalize stage;
+             launch count and the seconds of each finalize stage; in this
+             and each full-width run after it the sweep kernels (row_top2,
+             col_winner_max) must show 0 launches and auction_solve_large
+             one a LAP past 2048^2 (the energy's presolve; in the sapien
+             runs also the dense solves);
   7. the projection run at full width: the result.pkl of phase 6 through
              `--model kinematic --downsample 2 --assign_gap 1 --assign_band 0`
              for 200 iterations, a LAP of (9, 2048, 2048) in each, then
@@ -188,6 +202,10 @@ KERNELS = {
                    "reart_tpu/ops/pallas_nn.py:194"),
     "auction_solve_banded": ("reart_tpu_torch/csrc/auction_banded.cu",
                              "reart_tpu/ops/pallas_auction.py:541"),
+    # the sweeps of the two kernels above it (rows 7 and 8) past 2048^2
+    "auction_solve_large": ("reart_tpu_torch/csrc/auction_large.cu",
+                            "reart_tpu/ops/pallas_auction.py:39, "
+                            "reart_tpu/ops/pallas_auction.py:105"),
 }
 
 
@@ -874,6 +892,171 @@ def sweep_kernel_phase(dev, gen, src, pcs, stats):
           (r_ref, p_ref), exact={0})
     log("auction_lap sweep route (2, 1200, 1200): row_to_col exact, prices "
         f"within {FLOAT_TOL}")
+    large_kernel_phase(dev, benefit, stats)
+
+
+# the energy's presolve (metrics._auction_duals): eps_min 1e-6, 4 phases,
+# x30, 400 sweeps; the engine's dense LAP: eps_min 1e-4, 2 phases, x50, 100
+PRESOLVE_EPS = tuple(1e-6 * 30.0 ** k for k in range(3, -1, -1))
+ENGINE_EPS = (5e-3, 1e-4)
+
+
+def large_kernel_phase(dev, benefit, stats):
+    """auction_solve_large against its plain version (the sweep loop over
+    the plain row_top2 / col_winner_max), row_to_col, prices and stats
+    exact: the energy's presolve of phase 3's clouds (`benefit`) and of
+    clouds whose matching has stragglers (a permutation, moved 0.05: its
+    phases run into their 400-sweep tails, as the full-width runs' do), the
+    engine's dense LAP at (7, 4096, 4096) cold and warm, and the edge cases;
+    then auction_lap's default route against use_resident=False (the sweep
+    kernels), the kernel's time beside the sweep route's and the resident
+    kernel's (the same cluster sweep without the split row pass) launched
+    at the same shape, and its bound from the stats."""
+    from reart_tpu_torch.ops import assignment, cuda_auction
+    from reart_tpu_torch.ops.distance import pairwise_sqdist
+
+    # a generator of its own: the phases after this one keep their inputs
+    gen = torch.Generator(device=dev).manual_seed(8)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def benefit_of(src, tgt):
+        return (-torch.sqrt(pairwise_sqdist(src, tgt))).contiguous()
+
+    def lap(b, n, m):
+        return benefit_of(randn(b, n, 3), randn(b, m, 3))
+
+    def zeros(b, m):
+        return torch.zeros((b, m), device=dev)
+
+    solve = cuda_auction.auction_solve_large
+    plain = cuda_auction.auction_solve_large_plain
+    tgt = randn(9, 4096, 3)
+    src = (tgt[:, torch.randperm(4096, generator=gen, device=dev)]
+           + 0.05 * randn(9, 4096, 3))
+    tails = benefit_of(src, tgt)
+    engine = tails[:7].contiguous()
+    moved = benefit_of(src[:7] + 0.002 * randn(7, 4096, 3), tgt[:7])
+    warm_price = solve(engine, zeros(7, 4096), ENGINE_EPS, 100)[1]
+    ties = (1.0, 0.1, 0.01)  # integer costs: whole-number bids
+    cases = [
+        ("presolve (9, 4096, 4096)", benefit, zeros(9, 4096), PRESOLVE_EPS,
+         400),
+        ("presolve with tails (9, 4096, 4096)", tails, zeros(9, 4096),
+         PRESOLVE_EPS, 400),
+        ("engine cold (7, 4096, 4096)", engine, zeros(7, 4096), ENGINE_EPS,
+         100),
+        ("engine warm (7, 4096, 4096)", moved, warm_price, ENGINE_EPS, 100),
+        ("sweep bound 3 (9, 4096, 4096)", tails, zeros(9, 4096),
+         PRESOLVE_EPS, 3),
+        ("N < M (2, 2100, 2200)", lap(2, 2100, 2200), zeros(2, 2200),
+         ENGINE_EPS, 100),
+        ("M % 4 != 0 (2, 2100, 2101)", lap(2, 2100, 2101), zeros(2, 2101),
+         ENGINE_EPS, 100),
+        ("integer costs, ties (2, 2050, 2100)",
+         -torch.randint(0, 4, (2, 2050, 2100), generator=gen,
+                        device=dev).float(), zeros(2, 2100), ties, 200),
+        ("B = 1 (1, 4096, 4096)", tails[:1].contiguous(), zeros(1, 4096),
+         ENGINE_EPS, 100),
+        # 160 blocks, past 132 SMs: the clusters run in two waves
+        ("(20, 2100, 2100)", lap(20, 2100, 2100), zeros(20, 2100),
+         ENGINE_EPS, 100),
+        # two slot buffers do not fit the shared memory
+        ("one slot buffer (1, 3000, 12000)", lap(1, 3000, 12000),
+         zeros(1, 12000), ENGINE_EPS, 100)]
+    err = 0.0
+    counts = {}
+    plain_s = {}
+    for label, bm, p, e, sweeps in cases:
+        b, n, m = bm.shape
+        if not cuda_auction.large_available(n, m, dev):
+            raise AssertionError(f"auction_large {label}: outside the large "
+                                 f"kernel's window")
+        got = solve(bm, p, e, sweeps, return_stats=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = plain(bm, p, e, sweeps, return_stats=True)
+        torch.cuda.synchronize()
+        plain_s[label] = time.perf_counter() - t0
+        err = max(err, check(f"auction_large {label}", got, ref,
+                             exact={0, 1, 2}))
+        left = int((got[0] < 0).sum())
+        if "bound" in label and left == 0:
+            raise AssertionError(f"auction_large {label}: no row was left at "
+                                 f"the sweep bound")
+        counts[label] = got[2]
+        log(f"auction_large {label}: row_to_col, prices and stats exact "
+            f"({left} rows left at the sweep bound; plain "
+            f"{plain_s[label]:.2f} s); sweeps per phase "
+            f"{got[2][..., 0].T.tolist()}, bidding rows per phase "
+            f"{got[2][..., 1].T.tolist()}")
+
+    # the route as a whole: auction_lap's default (one launch) against
+    # use_resident=False (sweep by sweep through row_top2, col_winner_max)
+    presolve_kw = dict(eps_min=1e-6, num_scales=4, scale_factor=30.0,
+                       max_sweeps=400)
+    engine_kw = dict(eps_min=1e-4, num_scales=2, scale_factor=50.0,
+                     max_sweeps=100)
+    route = [("presolve with tails (9, 4096, 4096)", tails, presolve_kw),
+             ("engine cold (7, 4096, 4096)", engine, engine_kw)]
+    for label, bm, kw in route:
+        before = cuda_auction.auction_solve_large.launches
+        r_k, p_k = assignment.auction_lap(-bm, return_price=True, **kw)
+        if cuda_auction.auction_solve_large.launches != before + 1:
+            raise AssertionError(f"auction_lap {label}: the default route did "
+                                 f"not launch auction_solve_large once")
+        r_s, p_s = assignment.auction_lap(-bm, return_price=True,
+                                          use_resident=False, **kw)
+        diff = float((p_k.double() - p_s.double()).abs().max())
+        check(f"auction_lap one launch vs sweep route {label}", (r_k, p_k),
+              (r_s, p_s), exact={0, 1})
+        log(f"auction_lap {label}: one launch equals the sweep route "
+            f"(use_resident=False): row_to_col equal, prices bit-equal "
+            f"(largest difference {diff})")
+
+    # time and bound at the presolve with tails (the full-width runs'
+    # presolve runs its phases into their 400-sweep tails)
+    label = "presolve with tails (9, 4096, 4096)"
+    z9 = zeros(9, 4096)
+    st = counts[label]
+    rows_bid = int(st[..., 1].sum())
+    out = solve(tails, z9, PRESOLVE_EPS, 400)
+    # each bidding row reads its benefit row once (a subtraction and a
+    # comparison an entry); prices in and out, row_to_col out
+    nbytes = rows_bid * 4096 * 4 + sum(
+        t.numel() * t.element_size() for t in (z9, *out))
+    stats["auction_solve_large"] = dict(
+        shape="(9, 4096, 4096), presolve with tails, cold",
+        max_abs_err=err,
+        ms=median_ms(lambda: solve(tails, z9, PRESOLVE_EPS, 400), 5),
+        plain_ms=1e3 * plain_s[label],
+        ms_phase3_presolve=median_ms(
+            lambda: solve(benefit, z9, PRESOLVE_EPS, 400), 5),
+        ms_engine_cold=median_ms(
+            lambda: solve(engine, zeros(7, 4096), ENGINE_EPS, 100), 5),
+        ms_engine_warm=median_ms(
+            lambda: solve(moved, warm_price, ENGINE_EPS, 100), 5),
+        ms_resident_kernel=median_ms(lambda: cuda_auction._launch_resident(
+            tails, z9, PRESOLVE_EPS, 400), 5),
+        ms_resident_kernel_engine_warm=median_ms(
+            lambda: cuda_auction._launch_resident(moved, warm_price,
+                                                  ENGINE_EPS, 100), 5),
+        ms_sweep_route=median_ms(lambda: assignment.auction_lap(
+            -tails, use_resident=False, **presolve_kw), 1),
+        ms_sweep_route_engine_warm=median_ms(lambda: assignment.auction_lap(
+            -moved, price=warm_price, use_resident=False, **engine_kw), 2),
+        **bound_of(2 * rows_bid * 4096, nbytes))
+    s2 = stats["auction_solve_large"]
+    for lbl in (label, "engine warm (7, 4096, 4096)"):
+        c = counts[lbl]
+        log(f"auction_large {lbl}: longest phases (sweeps) "
+            f"{c[..., 0].max(0).values.tolist()}, bidding rows per phase "
+            f"(all elements) {c[..., 1].sum(0).tolist()}")
+    log(f"auction_large {label}: {s2['ms']:.4f} ms, the sweep route "
+        f"{s2['ms_sweep_route']:.1f} ms, the resident kernel "
+        f"{s2['ms_resident_kernel']:.4f} ms; bound {s2['bound_ms']:.5f} ms by "
+        f"{s2['bound_by']} ({rows_bid} bidding rows, {nbytes / 1e9:.3f} GB)")
 
 
 def streamed_kernel_phase(dev, gen, stats):
@@ -960,6 +1143,17 @@ def streamed_kernel_phase(dev, gen, stats):
         ms_sweep_route_cold=median_ms(lambda: assignment.auction_lap(
             -benefit, max_sweeps=100, use_resident=False, **kw), 3),
         **bound_of(2 * rows_bid * 2048, nbytes))
+    # the yardstick for row 10: the large kernel (the cluster auction with
+    # its split row pass) on the same inputs, past its size gate
+    for label, bm, p in (("", benefit2, warm_price), ("_cold", benefit, zero)):
+        check(f"auction_large at (9, 2048, 2048){label}",
+              cuda_auction._launch_large(bm, p, eps, 100, return_stats=True),
+              plain(bm, p, eps, 100, return_stats=True), exact={0, 1, 2})
+        stats["auction_solve_resident_hbm"][f"ms_large_kernel{label}"] = \
+            many_ms(lambda: cuda_auction._launch_large(bm, p, eps, 100), 10,
+                    5)
+    log("auction_large at (9, 2048, 2048), cold and warm: row_to_col, "
+        "prices and stats exact")
     cold = counts["cold (9, 2048, 2048)"]
     log(f"auction_hbm (9, 2048, 2048): warm {rows_bid} bidding rows in "
         f"{int(warm[..., 0].sum())} element-sweeps "
@@ -1411,11 +1605,28 @@ def kernel_wrappers():
             cuda_nn.nn1_coords, cuda_nn.nn_bidir, cuda_auction.row_top2,
             cuda_auction.col_winner_max,
             cuda_auction.auction_solve_resident_hbm, cuda_nn.ball_query,
-            cuda_auction.auction_solve_banded)
+            cuda_auction.auction_solve_banded,
+            cuda_auction.auction_solve_large)
 
 
 def launch_counts():
     return {w.__name__: w.launches for w in kernel_wrappers()}
+
+
+def sweep_route_unused(what, launches, presolve_only=True):
+    """Every LAP past 2048^2 of a full-width run (the energy's presolve, the
+    sapien runs' dense solves) is one launch of auction_solve_large: the
+    sweep kernels are not launched. A run without dense solves launches it
+    once, for the presolve."""
+    for name in ("row_top2", "col_winner_max"):
+        if launches[name]:
+            raise AssertionError(f"{what}: {launches[name]} launches of "
+                                 f"{name}; the LAPs past 2048^2 take "
+                                 f"auction_solve_large")
+    large = launches["auction_solve_large"]
+    if large < 1 or (presolve_only and large != 1):
+        raise AssertionError(f"{what}: {large} launches of "
+                             f"auction_solve_large")
 
 
 RUN_PROTOCOL = ("--n_iter 400 --assign_iter 300 --num_parts 20 "
@@ -1460,11 +1671,14 @@ def run_phase(dev, tmp):
         raise AssertionError("run: model.ckpt.pkl does not reload")
     for name, count in launches.items():
         # the streamed auction belongs to the projection run's path, the
-        # ball query to the corr chain's, the banded auction to sapien's
+        # ball query to the corr chain's, the banded auction to sapien's;
+        # the sweep kernels to auction_lap(..., use_resident=False) alone
         if (count <= 0) != (name in ("auction_solve_resident_hbm",
-                                     "ball_query", "auction_solve_banded")):
+                                     "ball_query", "auction_solve_banded",
+                                     "row_top2", "col_winner_max")):
             raise AssertionError(f"kernel {name}: {count} launches in the "
                                  f"relaxation run")
+    sweep_route_unused("run", launches)
     log(f"run: robot relaxation run at full width, {n_parts} parts, edges "
         f"{saved['joint_connection']}: "
         + ", ".join(f"{k} {v:.3f}" for k, v in results.items()))
@@ -1546,10 +1760,11 @@ def projection_run_phase(dev, tmp, sample, base_result_path):
             raise AssertionError(f"projection fit launched {name} "
                                  f"{fit_launches[name]} times")
     for name in ("blend3", "fps", "auction_solve_resident_hbm", "nn_bidir",
-                 "row_top2", "col_winner_max"):
+                 "auction_solve_large"):
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched by the "
                                  f"projection run")
+    sweep_route_unused("projection run", launches)
     log(f"projection run: {n_parts} parts, edges "
         f"{saved['joint_connection']}: "
         + ", ".join(f"{k} {v:.3f}" for k, v in results.items()))
@@ -2015,6 +2230,7 @@ def corr_flow_run_phase(dev, tmp, sample, seq_dir, norm_file, corr_path,
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched by the "
                                  f"corr-flow run")
+    sweep_route_unused("corr-flow run", launches)
     log(f"corr-flow run: setup_flow {seen['seconds']:.3f} s, anchors per "
         f"frame pair {anchors} of 4096 points; "
         + ", ".join(f"{k} {v:.3f}" for k, v in results.items()))
@@ -2497,6 +2713,9 @@ def sapien_chain_phase(dev, tmp, keep_dir=None):
             if launches[name] <= 0:
                 raise AssertionError(f"kernel {name} was not launched by the "
                                      f"sapien {stage} run")
+        # the presolve and each dense (7, 4096, 4096) solve: one launch each
+        sweep_route_unused(f"sapien {stage} run", launches,
+                           presolve_only=False)
     payload = checkpoint.load_checkpoint(
         os.path.join(tmp, "sapien_kin", "0", "model.ckpt.pkl"))
     log(f"sapien projection run: joints {_joint_types(payload)}, root "
@@ -2558,6 +2777,7 @@ def real_chain_phase(dev, tmp):
             if launches[name] <= 0:
                 raise AssertionError(f"kernel {name} was not launched by the "
                                      f"real {stage} run")
+        sweep_route_unused(f"real {stage} run", launches)
     payload = checkpoint.load_checkpoint(
         os.path.join(tmp, "real_kin", "scans", "model.ckpt.pkl"))
     log(f"real projection run: joints {_joint_types(payload)}")

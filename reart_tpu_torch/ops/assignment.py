@@ -5,7 +5,9 @@ Sweep counts are bounded (`max_sweeps`); rows still unassigned at the bound
 are completed greedily outside the kernel (they may duplicate a column).
 Prices can be warm-started across solves (`price` in and out). `auction_lap`
 picks its solver by size as the JAX package does: one launch up to 1024^2
-(resident) and up to 2048^2 (streamed), sweep by sweep past that.
+(resident) and up to 2048^2 (streamed), sweep by sweep past that; on the
+card a problem past 2048^2 whose state fits a block's shared memory is one
+launch too (the large kernel), where the JAX package sweeps.
 
 The banded part (`auction_lap_points`) solves a giant euclidean problem
 straight from the point clouds: both clouds sorted along a space-filling
@@ -22,12 +24,14 @@ from reart_tpu_torch.ops.cuda_auction import (
     BAND_MAX_BYTES,
     _band_offsets,
     auction_solve_banded,
+    auction_solve_large,
     auction_solve_resident,
     auction_solve_resident_hbm,
     band_tile,
     banded_available,
     col_winner_max,
     col_winner_max_plain,
+    large_available,
     resident_available,
     resident_hbm_available,
     row_top2,
@@ -95,9 +99,12 @@ def auction_lap(cost: torch.Tensor, eps_min: float = 1e-4,
     `return_price`). Epsilon phases run from eps_min * scale_factor **
     (num_scales - 1) down to eps_min; pass `price` to warm-start. A problem
     that fits the resident kernel (N*M <= 1024^2) or the streamed one (up to
-    2048^2) is solved in one launch; a larger one sweep by sweep through the
-    two sweep kernels (`use_resident=False` sends any size that way, with no
-    one-launch kernel at all; True asks for the resident kernel)."""
+    2048^2) is solved in one launch, and so is a larger one on the card
+    whose state fits the large kernel (`large_available`); any other sweep
+    by sweep through the two sweep kernels (`use_resident=False` sends any
+    size that way, with no one-launch kernel at all; True asks for the
+    resident kernel). Every route computes the same auction: the same
+    row_to_col and prices."""
     if cost.dim() == 2:
         out = auction_lap(cost[None], eps_min, num_scales, scale_factor,
                           max_sweeps, None if price is None else price[None],
@@ -115,6 +122,8 @@ def auction_lap(cost: torch.Tensor, eps_min: float = 1e-4,
         solve = auction_solve_resident
     elif use_resident is None and resident_hbm_available(n, m):
         solve = auction_solve_resident_hbm
+    elif use_resident is None and large_available(n, m, benefit.device):
+        solve = auction_solve_large
     if solve is not None:
         row_to_col, price = solve(benefit, price, eps_list, max_sweeps)
     else:

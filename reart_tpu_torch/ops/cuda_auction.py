@@ -1,15 +1,20 @@
 """Auction kernels (csrc/auction.cu, csrc/auction_hbm.cu,
-csrc/auction_sweep.cu, csrc/auction_banded.cu) with their plain PyTorch
-versions; counterpart of reart_tpu/ops/pallas_auction.py.
+csrc/auction_large.cu, csrc/auction_sweep.cu, csrc/auction_banded.cu) with
+their plain PyTorch versions; counterpart of reart_tpu/ops/pallas_auction.py.
 
   * `auction_solve_resident`: the whole epsilon-scaled solve in one launch,
     for N*M <= 1024^2 (Pallas `auction_solve_resident`);
   * `auction_solve_resident_hbm`: the same solve in one launch for
     1024^2 < N*M <= 2048^2, the benefit streamed from device memory by a
     cluster of blocks per element (Pallas `auction_solve_resident_hbm`);
+  * `auction_solve_large`: the same solve in one launch past 2048^2, where
+    the JAX package sweeps (the cluster kernel of `auction_solve_resident`,
+    whose state still fits a block's shared memory up to M ~ 14000);
   * `row_top2`, `col_winner_max`: the two matrix-shaped passes of one sweep
     of a still larger problem (Pallas `row_top2_pallas`,
-    `col_winner_max_pallas`), driven by ops/assignment._auction_phase;
+    `col_winner_max_pallas`), driven by ops/assignment._auction_phase; on
+    the card only `auction_lap(..., use_resident=False)` and problems past
+    `large_available` take them;
   * `auction_solve_banded`: the banded solve of a giant problem from
     curve-sorted points, each row tile bidding inside a window of w sorted
     columns (Pallas `auction_solve_banded`), driven by
@@ -35,12 +40,16 @@ from reart_tpu_torch.ops import _build
 # the windows of the JAX package's dispatch: the resident kernel up to
 # 1024^2 (there the benefit tile that fits VMEM; here what the L2 holds for
 # a batch of 9), the streamed kernel up to 2048^2, the sweeps or the banded
-# solve past that
+# solve past that (here the large kernel where its state fits)
 RESIDENT_MAX_ELEMS = 1024 * 1024
 RESIDENT_HBM_MAX_ELEMS = 2048 * 2048
 MAX_EPS = 8
 # shared memory a block can use (227 KB) less the kernels' static part
 _MAX_SMEM = 232448 - 1024
+# the cluster kernel's (csrc/auction_cluster.cuh): its limit, and the split
+# row pass's scratch of the large kernel (256 row indices, 32 partial top-2)
+_CLUSTER_MAX_SMEM = 232448 - 64
+_SPLIT_BYTES = 4 * 256 + 12 * 32
 
 
 def auction_solve_resident_plain(benefit: torch.Tensor, price: torch.Tensor,
@@ -61,9 +70,10 @@ def auction_solve_resident_plain(benefit: torch.Tensor, price: torch.Tensor,
     return (row_to_col, price, stats) if return_stats else (row_to_col, price)
 
 
-# one plain version serves both one-launch kernels: they differ in where the
-# benefit sits, not in what they compute
+# one plain version serves the three one-launch kernels: they differ in
+# where the benefit sits, not in what they compute
 auction_solve_resident_hbm_plain = auction_solve_resident_plain
+auction_solve_large_plain = auction_solve_resident_plain
 
 
 def _check_solve_args(name: str, benefit, price, eps_list):
@@ -89,7 +99,7 @@ def auction_solve_resident(benefit: torch.Tensor, price: torch.Tensor,
     eps_list runs from the largest epsilon to the smallest."""
     name = "auction_solve_resident"
     eps_list = _check_solve_args(name, benefit, price, eps_list)
-    b, n, m = benefit.shape
+    _, n, m = benefit.shape
     if _build.is_cpu(name, benefit):
         return auction_solve_resident_plain(benefit, price, eps_list,
                                             max_sweeps)
@@ -98,6 +108,14 @@ def auction_solve_resident(benefit: torch.Tensor, price: torch.Tensor,
         raise ValueError(
             f"{name}: a {n}x{m} LAP is past the resident window (N*M <= "
             f"1024^2); ops.assignment.auction_lap picks the kernel by size")
+    return _launch_resident(benefit, price, eps_list, max_sweeps)
+
+
+def _launch_resident(benefit, price, eps_list, max_sweeps: int):
+    """The resident kernel's launch on checked CUDA inputs, at any N <= M
+    whose state fits a block's shared memory; the wrapper above gates it to
+    its window."""
+    b, n, m = benefit.shape
     r2c = torch.empty((b, n), dtype=torch.int64, device=benefit.device)
     price_out = torch.empty((b, m), dtype=torch.float32,
                             device=benefit.device)
@@ -109,7 +127,7 @@ def auction_solve_resident(benefit: torch.Tensor, price: torch.Tensor,
             ctypes.cast(eps_arr, ctypes.c_void_p),
             len(eps_list), int(max_sweeps), r2c.data_ptr(),
             price_out.data_ptr(), _build.stream_of(benefit))
-    _build.check_launch(name, err)
+    _build.check_launch("auction_solve_resident", err)
     auction_solve_resident.launches += 1
     return r2c, price_out
 
@@ -121,6 +139,75 @@ def resident_available(n: int, m: int) -> bool:
     """Whether an (N, M) problem fits the resident kernel (shared memory: 16
     bytes per column plus one per row)."""
     return n * m <= RESIDENT_MAX_ELEMS and 16 * m + n <= _MAX_SMEM
+
+
+def auction_solve_large(benefit: torch.Tensor, price: torch.Tensor,
+                        eps_list, max_sweeps: int,
+                        return_stats: bool = False):
+    """Full epsilon-scaled auction of a problem past 2048^2 whose state fits
+    a block's shared memory (`large_available`); see
+    auction_solve_resident_plain. One launch, no host synchronisation
+    between sweeps, where the JAX package runs its sweeps."""
+    name = "auction_solve_large"
+    eps_list = _check_solve_args(name, benefit, price, eps_list)
+    _, n, m = benefit.shape
+    if _build.is_cpu(name, benefit):
+        return auction_solve_large_plain(benefit, price, eps_list, max_sweeps,
+                                         return_stats)
+    _build.require_cuda(name, benefit, price, dtype=torch.float32)
+    if not large_available(n, m, benefit.device):
+        raise ValueError(
+            f"{name}: a {n}x{m} LAP is outside the large kernel's window "
+            f"(N*M > 2048^2, N <= M, its state in a block's shared memory: "
+            f"M up to ~14000); ops.assignment.auction_lap picks the kernel "
+            f"by size")
+    return _launch_large(benefit, price, eps_list, max_sweeps, return_stats)
+
+
+def _launch_large(benefit, price, eps_list, max_sweeps: int,
+                  return_stats: bool = False):
+    """The large kernel's launch on checked CUDA inputs, at any N <= M whose
+    state fits a block's shared memory; the wrapper above gates it to its
+    window."""
+    b, n, m = benefit.shape
+    dev = benefit.device
+    r2c = torch.empty((b, n), dtype=torch.int64, device=dev)
+    price_out = torch.empty((b, m), dtype=torch.float32, device=dev)
+    # written by the kernel for every element and phase
+    stats = torch.empty((b, len(eps_list), 2), dtype=torch.int32, device=dev)
+    eps_arr = (ctypes.c_float * len(eps_list))(*eps_list)
+    lib = _build.load_library()
+    with torch.cuda.device(dev):
+        err = lib.reart_auction_large(
+            benefit.data_ptr(), price.data_ptr(), b, n, m,
+            ctypes.cast(eps_arr, ctypes.c_void_p), len(eps_list),
+            int(max_sweeps), r2c.data_ptr(), price_out.data_ptr(),
+            stats.data_ptr(), _build.stream_of(benefit))
+    _build.check_launch("auction_solve_large", err)
+    auction_solve_large.launches += 1
+    return (r2c, price_out, stats) if return_stats else (r2c, price_out)
+
+
+auction_solve_large.launches = 0
+
+
+def _cluster_smem(n: int, m: int, nbuf: int) -> int:
+    """The large kernel's shared memory (csrc/auction_cluster.cuh
+    cluster_smem): keys, prices and owners 16 bytes a column, nbuf slot
+    buffers 8 bytes a row (rounded to 16 bytes), a flag a row, then the
+    split row pass's scratch, 16-byte aligned."""
+    base = 16 * m + 8 * ((nbuf * n + 1) & ~1) + n
+    return ((base + 15) & ~15) + _SPLIT_BYTES
+
+
+def large_available(n: int, m: int, device=None) -> bool:
+    """Whether an (N, M) problem on `device` takes the large kernel: a CUDA
+    device, past the streamed window (N*M > 2048^2), N <= M, and the state
+    in a block's shared memory with one slot buffer at least. On the CPU
+    every size past 2048^2 goes sweep by sweep, as in the JAX package."""
+    return (device is not None and torch.device(device).type == "cuda"
+            and 0 < n <= m and n * m > RESIDENT_HBM_MAX_ELEMS
+            and _cluster_smem(n, m, 1) <= _CLUSTER_MAX_SMEM)
 
 
 def auction_solve_resident_hbm(benefit: torch.Tensor, price: torch.Tensor,

@@ -9,7 +9,10 @@ subtraction, a maximum: no rounding differs). The plain version of the
 streamed one-launch kernel (csrc/auction_hbm.cu) against the Pallas kernel
 in interpret mode at the cases of tests/test_assignment.py::TestResidentHBM
 (two column strips, ts=128), cold and warm: row_to_col equal, prices within
-rtol 1e-5; and `auction_lap`'s choice of solver by size."""
+rtol 1e-5; and `auction_lap`'s choice of solver by size. The large kernel's
+(csrc/auction_large.cu) plain version against the JAX package's sweep loop
+(`auction_lap(..., use_resident=False)`, the route it replaces on the
+card): row_to_col equal, prices within rtol 1e-6, atol 1e-6."""
 
 import types
 
@@ -334,3 +337,122 @@ def test_streamed_wrapper_checks_inputs():
     with pytest.raises(ValueError):  # prices of another width
         cuda_auction.auction_solve_resident_hbm(
             torch.zeros((1, 4, 8)), torch.zeros((1, 7)), (1e-3,), 10)
+
+
+LARGE_CASES = {
+    # seed, shape, integer costs, warm start
+    "cold": (31, (2, 48, 64), False, False),
+    "warm": (32, (2, 40, 72), False, True),
+    "fewer_rows_than_columns": (33, (3, 30, 97), False, False),
+    "integer_ties": (34, (2, 40, 56), True, False),
+}
+
+
+@pytest.mark.parametrize("case", list(LARGE_CASES))
+def test_large_plain_matches_jax_sweeps(case):
+    """auction_solve_large on CPU tensors (its plain version) against the
+    JAX package's sweep route, which it replaces on the card past 2048^2:
+    the same auction, so row_to_col equal (after the same greedy completion)
+    and prices within rtol 1e-6, atol 1e-6."""
+    seed, shape, ties, warm = LARGE_CASES[case]
+    rng = np.random.RandomState(seed)
+    if ties:
+        cost = rng.randint(0, 4, shape).astype(np.float32)
+        kw = dict(eps_min=0.01, num_scales=3, scale_factor=10.0,
+                  max_sweeps=200)
+    else:
+        cost = rng.rand(*shape).astype(np.float32)
+        kw = dict(eps_min=1e-4, num_scales=2, scale_factor=50.0,
+                  max_sweeps=100)
+    price = np.zeros((shape[0], shape[2]), np.float32)
+    if warm:  # the prices of a solve of slightly moved costs
+        moved = cost + 0.01 * rng.rand(*shape).astype(np.float32)
+        _, price = _jax_lap(moved, False, **kw)
+    r_ref, p_ref = _jax_lap(cost, False, price=price, **kw)
+    eps_list = tuple(kw["eps_min"] * kw["scale_factor"] ** k
+                     for k in range(kw["num_scales"] - 1, -1, -1))
+    benefit = torch.from_numpy(-cost)
+    r, p = cuda_auction.auction_solve_large(
+        benefit, torch.from_numpy(np.array(price)), eps_list,
+        kw["max_sweeps"])
+    r = torch.where(r < 0, torch.argmax(benefit - p[:, None], -1), r)
+    np.testing.assert_array_equal(r.numpy(), r_ref)
+    np.testing.assert_allclose(p.numpy(), p_ref, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("sweeps", [200, 3], ids=["converged", "bound"])
+def test_large_plain_stats(sweeps):
+    """Its stats (sweeps run, rows that bid, per element and phase) are the
+    resident plain version's, the counts the kernel writes on the card."""
+    cost = np.random.RandomState(35).rand(3, 40, 50).astype(np.float32)
+    benefit, price = torch.from_numpy(-cost), torch.zeros((3, 50))
+    eps_list = (1e-2, 1e-3)
+    r, p, stats = cuda_auction.auction_solve_large(benefit, price, eps_list,
+                                                   sweeps, return_stats=True)
+    r2, p2, stats2 = cuda_auction.auction_solve_resident_plain(
+        benefit, price, eps_list, sweeps, return_stats=True)
+    assert torch.equal(r, r2) and torch.equal(p, p2)
+    assert torch.equal(stats, stats2)
+    assert stats.shape == (3, 2, 2) and stats.dtype == torch.int32
+    assert (stats[..., 0] >= 1).all() and (stats[..., 0] <= sweeps).all()
+    assert (stats[..., 1] >= 40).all()
+    assert ((r < 0).any()) == (sweeps == 3)
+
+
+def test_large_wrapper_checks_inputs():
+    with pytest.raises(ValueError):  # N > M
+        cuda_auction.auction_solve_large(
+            torch.zeros((1, 8, 4)), torch.zeros((1, 4)), (1e-3,), 10)
+    with pytest.raises(ValueError):  # nine epsilon phases
+        cuda_auction.auction_solve_large(
+            torch.zeros((1, 4, 8)), torch.zeros((1, 8)), (1e-3,) * 9, 10)
+    with pytest.raises(ValueError):  # prices of another width
+        cuda_auction.auction_solve_large(
+            torch.zeros((1, 4, 8)), torch.zeros((1, 7)), (1e-3,), 10)
+
+
+def test_large_available_by_device_and_size():
+    """On the CPU never (every size past 2048^2 sweeps, as in the JAX
+    package); on a CUDA device past 2048^2 with N <= M while the state fits
+    a block's shared memory (decided from the device's type: no card is
+    needed to ask)."""
+    cuda = torch.device("cuda")
+    inside = ((4096, 4096), (2100, 2101), (3000, 12000), (2100, 2200))
+    for n, m in inside:
+        assert cuda_auction.large_available(n, m, cuda), (n, m)
+        assert cuda_auction.large_available(n, m, "cuda:0"), (n, m)
+        assert not cuda_auction.large_available(n, m, "cpu"), (n, m)
+        assert not cuda_auction.large_available(n, m), (n, m)
+    outside = ((2048, 2048), (1024, 4096), (1, 2048 ** 2), (4096, 2048),
+               (2100, 14500), (5000, 14000))
+    for n, m in outside:
+        assert not cuda_auction.large_available(n, m, cuda), (n, m)
+
+
+def test_auction_lap_takes_the_large_kernel_on_the_card(monkeypatch):
+    """With large_available true (as on the card), auction_lap solves a LAP
+    past 2048^2 with one launch of auction_solve_large, and still sweeps
+    under use_resident=False; the windows below 2048^2 keep their kernels."""
+    from reart_tpu_torch.ops import assignment
+
+    calls = []
+
+    def spy(name):
+        def solve(benefit, price, *_):
+            calls.append(name)
+            return torch.zeros(benefit.shape[:2], dtype=torch.int64), price
+        return solve
+
+    monkeypatch.setattr(assignment, "large_available", lambda n, m, d: True)
+    monkeypatch.setattr(assignment, "auction_solve_resident", spy("resident"))
+    monkeypatch.setattr(assignment, "auction_solve_resident_hbm",
+                        spy("streamed"))
+    monkeypatch.setattr(assignment, "auction_solve_large", spy("large"))
+    monkeypatch.setattr(assignment, "_auction_phase", spy("sweeps"))
+    kw = dict(num_scales=2, max_sweeps=2)
+    past = torch.zeros((1, 1, 2048 ** 2 + 1))
+    auction_lap(past, **kw)
+    auction_lap(past, use_resident=False, **kw)
+    auction_lap(torch.rand((1, 8, 8)), **kw)
+    auction_lap(torch.rand((1, 32, 32800)), **kw)
+    assert calls == ["large", "sweeps", "sweeps", "resident", "streamed"]

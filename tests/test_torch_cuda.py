@@ -215,6 +215,42 @@ def test_auction_integer_costs_tie_everywhere(cuda):
     _same(got, ref, exact={0})
 
 
+@pytest.mark.parametrize("b,n,m,sweeps,ties", [
+    (1, 2049, 2050, 100, False), (2, 2100, 2101, 100, False),
+    (2, 2100, 2200, 3, False), (2, 2050, 2100, 200, True),
+    (1, 3000, 12000, 100, False), (20, 2100, 2100, 100, False)])
+def test_auction_large_edge_cases(cuda, b, n, m, sweeps, ties):
+    """The large kernel (one launch past 2048^2) against its plain version
+    run on the card, row_to_col, prices and stats exact: N < M, M % 4 != 0
+    (one value at a time), rows left at the sweep bound, integer-cost ties,
+    one slot buffer, 20 elements (160 blocks, more than the card's 132
+    SMs)."""
+    if ties:
+        rng = np.random.RandomState(b * n + m)
+        benefit = -torch.from_numpy(rng.randint(0, 4, (b, n, m)).astype(
+            np.float32))
+        eps = (1.0, 0.1, 0.01)
+    else:
+        benefit = -torch.cdist(_randn(n + 11, b, n, 3),
+                               _randn(m + 11, b, m, 3))
+        eps = EPS
+    benefit, price = benefit.to(cuda), torch.zeros((b, m), device=cuda)
+    got = cuda_auction.auction_solve_large(benefit, price, eps, sweeps,
+                                           return_stats=True)
+    ref = cuda_auction.auction_solve_large_plain(benefit, price, eps, sweeps,
+                                                 return_stats=True)
+    _same(got, tuple(r.cpu() for r in ref), exact={0, 1, 2})
+    if sweeps == 3:
+        assert (got[0] < 0).any()
+
+
+def test_auction_large_rejects_within_2048(cuda):
+    benefit = torch.zeros((1, 2048, 2048), device=cuda)
+    with pytest.raises(ValueError):
+        cuda_auction.auction_solve_large(
+            benefit, torch.zeros((1, 2048), device=cuda), EPS, 10)
+
+
 def test_auction_rejects_past_dense_window(cuda):
     benefit = torch.zeros((1, 1025, 1025), device=cuda)
     with pytest.raises(ValueError):
@@ -243,19 +279,33 @@ def test_sweep_kernels_sizes_and_ties(cuda, b, n, m):
 
 
 def test_auction_lap_past_the_streamed_window_runs_sweeps(cuda):
+    """Past 2048^2 the sweep kernels run under use_resident=False, and by
+    default where the large kernel's state does not fit a block's shared
+    memory (M = 15000); where it fits (M = 4200) the default route is one
+    launch of auction_solve_large. Every route equals the plain loop on the
+    CPU."""
     from reart_tpu_torch.ops.assignment import auction_lap
 
-    tgt = _randn(5, 1, 4200, 3)
-    src = tgt[:, np.random.RandomState(5).permutation(4200)[:1000]] \
-        + 0.05 * _randn(6, 1, 1000, 3)
-    cost = torch.cdist(src, tgt)  # 1000 x 4200 > 2048^2
     kw = dict(eps_min=1e-4, num_scales=2, scale_factor=50.0, max_sweeps=60,
               return_price=True)
-    before = cuda_auction.row_top2.launches
-    r2c, price = auction_lap(cost.to(cuda), **kw)
-    assert cuda_auction.row_top2.launches > before
-    r_ref, p_ref = auction_lap(cost, **kw)  # the plain loop on the CPU
-    _same((r2c, price), (r_ref, p_ref), exact={0})
+    for n, m in ((1000, 4200), (300, 15000)):  # both > 2048^2
+        tgt = _randn(5, 1, m, 3)
+        src = tgt[:, np.random.RandomState(5).permutation(m)[:n]] \
+            + 0.05 * _randn(6, 1, n, 3)
+        cost = torch.cdist(src, tgt)
+        r_ref, p_ref = auction_lap(cost, **kw)  # the plain loop on the CPU
+        fits = cuda_auction.large_available(n, m, cuda)
+        assert fits == (m == 4200)
+        for use_resident in (None, False):
+            sweeps = cuda_auction.row_top2.launches
+            large = cuda_auction.auction_solve_large.launches
+            r2c, price = auction_lap(cost.to(cuda), use_resident=use_resident,
+                                     **kw)
+            one_launch = fits and use_resident is None
+            assert (cuda_auction.auction_solve_large.launches - large
+                    == int(one_launch))
+            assert (cuda_auction.row_top2.launches > sweeps) != one_launch
+            _same((r2c, price), (r_ref, p_ref), exact={0})
 
 
 def _streamed_problem(kind, b, n, m):
