@@ -27,7 +27,14 @@ Phases, each of which raises on failure (exit code != 0):
              route against the sweep route, its ms beside the sweep route's
              and the resident kernel's at the same shapes, the bidding
              rows per phase, and its ms at (9, 2048, 2048) beside the
-             streamed kernel's); indices and
+             streamed kernel's); for the streamed kernel (the cluster
+             auction with a candidate cache and the tail on one block)
+             row_to_col, prices and stats exact at the projection's
+             (9, 2048, 2048) cold and warm and at the window's edges (M % 4
+             != 0, B = 1, 20 elements, (1, 1025, 1025), the largest M whose
+             state fits at N = 80 and, one past it, auction_lap's sweep
+             route), the cache's answers, the first sweeps' ms and the ms
+             a tail sweep; indices and
              coordinates exact, floats within FLOAT_TOL; ms of many launches
              per event pair (for the two kernels too small to fill the
              queue: of a replayed CUDA graph of many launches, which is
@@ -100,7 +107,10 @@ Phases, each of which raises on failure (exit code != 0):
              prismatic joints allowed; seconds and launch counts of each.
 Phase 3 holds the banded kernel to its plain version at the sapien LAP
 ((7, 4096, 4096), w=1024) and at (9, 2048, 2048), w=512, cold and warm,
-carry off and on.
+carry off and on, and at w=128, w=M-128, B=1, B=20 and (1, 12288, 12288),
+each through the design banded_route picks (the cluster design where its
+state fits a block's shared memory, the global-state design past that),
+timed beside the global-state design on the same inputs.
 The line before the last is a JSON object of the kernels; the last line is
 {"ok": true, "device": {...}}. Imports neither jax nor reart_tpu.
 """
@@ -676,6 +686,7 @@ def kernel_phase(dev):
     ball_query_phase(dev, gen, stats)
     with tempfile.TemporaryDirectory() as tmp:
         banded_kernel_phase(dev, tmp, stats)
+    cluster_config_phase()
     for name, s in stats.items():
         log(f"timing {name} {s['shape']}: kernel {s['ms']:.4f} ms, plain "
             f"{s['plain_ms']:.4f} ms, bound {s['bound_ms']:.5f} ms by "
@@ -911,7 +922,8 @@ def large_kernel_phase(dev, benefit, stats):
     then auction_lap's default route against use_resident=False (the sweep
     kernels), the kernel's time beside the sweep route's and the resident
     kernel's (the same cluster sweep without the split row pass) launched
-    at the same shape, and its bound from the stats."""
+    at the same shape, and its bound (the benefit read once; operations for
+    the rows the cache did not answer, counted by the kernel's probe)."""
     from reart_tpu_torch.ops import assignment, cuda_auction
     from reart_tpu_torch.ops.distance import pairwise_sqdist
 
@@ -1021,11 +1033,14 @@ def large_kernel_phase(dev, benefit, stats):
     z9 = zeros(9, 4096)
     st = counts[label]
     rows_bid = int(st[..., 1].sum())
-    out = solve(tails, z9, PRESOLVE_EPS, 400)
-    # each bidding row reads its benefit row once (a subtraction and a
-    # comparison an entry); prices in and out, row_to_col out
-    nbytes = rows_bid * 4096 * 4 + sum(
-        t.numel() * t.element_size() for t in (z9, *out))
+    probe = torch.zeros((9, 2), dtype=torch.int32, device=dev)
+    out = cuda_auction._launch_large(tails, z9, PRESOLVE_EPS, 400, True,
+                                     probe)
+    hits, rows_read = probe.sum(0).tolist()
+    # each input read once (the benefit, the prices), each output written
+    # once; the operations this run's data needs, a subtraction and a
+    # comparison for each entry of the rows read (the probe's count)
+    nbytes = sum(t.numel() * t.element_size() for t in (tails, z9, *out))
     stats["auction_solve_large"] = dict(
         shape="(9, 4096, 4096), presolve with tails, cold",
         max_abs_err=err,
@@ -1046,7 +1061,8 @@ def large_kernel_phase(dev, benefit, stats):
             -tails, use_resident=False, **presolve_kw), 1),
         ms_sweep_route_engine_warm=median_ms(lambda: assignment.auction_lap(
             -moved, price=warm_price, use_resident=False, **engine_kw), 2),
-        **bound_of(2 * rows_bid * 4096, nbytes))
+        rows_read=rows_read,
+        **bound_of(2 * rows_read * 4096, nbytes))
     s2 = stats["auction_solve_large"]
     for lbl in (label, "engine warm (7, 4096, 4096)"):
         c = counts[lbl]
@@ -1056,14 +1072,62 @@ def large_kernel_phase(dev, benefit, stats):
     log(f"auction_large {label}: {s2['ms']:.4f} ms, the sweep route "
         f"{s2['ms_sweep_route']:.1f} ms, the resident kernel "
         f"{s2['ms_resident_kernel']:.4f} ms; bound {s2['bound_ms']:.5f} ms by "
-        f"{s2['bound_by']} ({rows_bid} bidding rows, {nbytes / 1e9:.3f} GB)")
+        f"{s2['bound_by']} (the benefit read once, {nbytes / 1e9:.3f} GB; "
+        f"{rows_bid} bids, {hits} answered by the cache, {rows_read} rows "
+        f"read), {100 * s2['bound_ms'] / s2['ms']:.1f}% of it")
+
+
+def cluster_config_phase():
+    """The size gates of the cluster kernels (cuda_auction.cluster_plan,
+    which mirrors the shared-memory layout of csrc/auction_cluster.cuh)
+    against what the library takes (cluster_config) at every size of a scan
+    across the gates' edges; prints each change of configuration with the
+    size before it."""
+    from reart_tpu_torch.ops import cuda_auction
+
+    big = cuda_auction.RESIDENT_HBM_MAX_ELEMS
+    scans = [("resident_hbm", n, range(n, min(16000, big // n) + 1), 0)
+             for n in (80, 1100, 2048)]
+    scans += [("large", n, range(max(n, big // n + 1), 16001), 0)
+              for n in (2100, 3000, 4096)]
+    scans += [("banded", 1024, [1024], 128)]
+    scans += [("banded", None, range(2048, 12289, 256), 256)]
+    table = {}
+    for kernel, n0, ms, tile in scans:
+        prev = None
+        for m in ms:
+            key = (kernel, m if n0 is None else n0, m, tile)
+            plan = cuda_auction.cluster_plan(*key)
+            cfg = cuda_auction.cluster_config(*key)
+            if cfg != plan:
+                raise AssertionError(f"cluster_plan {key}: {plan}, the "
+                                     f"library {cfg}")
+            if prev is None or cfg[:2] != prev[1][:2]:
+                if prev is not None:
+                    table[prev[0]] = prev[1]
+                table[key] = cfg
+            prev = (key, cfg)
+        table[prev[0]] = prev[1]
+    log(f"cluster_plan equals the library at every size scanned; (kernel, N, "
+        f"M, tile) -> (slot buffers, option, bytes) at each change and at "
+        f"the scans' ends: {list(table.items())}")
 
 
 def streamed_kernel_phase(dev, gen, stats):
-    """auction_solve_resident_hbm against its plain version and against the
-    sweep route, at the projection fit's LAP: (9, 2048, 2048) euclidean
-    costs of two clouds, cold (zero prices) and warm (the prices of the
-    previous solve, the source cloud moved a little)."""
+    """auction_solve_resident_hbm against its plain version, row_to_col,
+    prices and stats exact, and against the sweep route, at the projection
+    fit's LAP: (9, 2048, 2048) euclidean costs of two clouds, cold (zero
+    prices) and warm (the prices of the previous solve, the source cloud
+    moved a little); and the window's edges: M % 4 != 0, B = 1, more
+    elements than fit the card at once, the window's lower edge, the
+    largest M whose cluster state fits at small N and one past it (there
+    auction_lap sweeps). Each case prints its slowest element's sweeps per
+    phase and the bids the candidate cache answered against the rows read.
+    Times: warm and cold, the first sweeps alone (max_sweeps 1, with the
+    rows they read and the rate) and the rest per tail sweep of the slowest
+    element; the bound, the benefit read once; the large kernel, which
+    runs the same cluster sweep past 2048^2, is held to the plain version
+    on the same inputs."""
     from reart_tpu_torch.ops import assignment, cuda_auction
     from reart_tpu_torch.ops.distance import pairwise_sqdist
 
@@ -1078,6 +1142,9 @@ def streamed_kernel_phase(dev, gen, stats):
     def benefit_of(src, tgt):
         return (-torch.sqrt(pairwise_sqdist(src, tgt))).contiguous()
 
+    def zeros(b, m):
+        return torch.zeros((b, m), device=dev)
+
     eps = (5e-3, 1e-4)  # the fit's schedule: eps_min 1e-4, 2 scales, x50
     kw = dict(eps_min=1e-4, num_scales=2, scale_factor=50.0)
     solve = cuda_auction.auction_solve_resident_hbm
@@ -1085,34 +1152,61 @@ def streamed_kernel_phase(dev, gen, stats):
     src, tgt = clouds(9, 2048, 2048)
     benefit = benefit_of(src, tgt)
     benefit2 = benefit_of(src + 0.002 * randn(9, 2048, 3), tgt)
-    zero = torch.zeros((9, 2048), device=dev)
+    zero = zeros(9, 2048)
     warm_price = solve(benefit, zero, eps, 100)[1].contiguous()
     src_r, tgt_r = clouds(2, 1024, 2048)
     ties = -torch.randint(0, 3, (2, 1100, 1200), generator=gen,
                           device=dev).float()
+    # the largest M whose state fits the streamed kernel at N = 80
+    m_edge = max(m for m in range(13000, 16000)
+                 if cuda_auction.resident_hbm_available(80, m))
     cases = [("cold (9, 2048, 2048)", benefit, zero, 100),
              ("warm (9, 2048, 2048)", benefit2, warm_price, 100),
              ("non-square cold (2, 1024, 2048)", benefit_of(src_r, tgt_r),
-              torch.zeros((2, 2048), device=dev), 100),
+              zeros(2, 2048), 100),
              ("sweep bound 3 (9, 2048, 2048)", benefit, zero, 3),
-             ("ties (2, 1100, 1200)", ties,
-              torch.zeros((2, 1200), device=dev), 100)]
+             ("ties (2, 1100, 1200)", ties, zeros(2, 1200), 100),
+             ("M % 4 != 0 (2, 1100, 1203)", benefit_of(*clouds(2, 1100, 1203)),
+              zeros(2, 1203), 100),
+             ("B = 1 (1, 2048, 2048)", benefit2[:1].contiguous(),
+              warm_price[:1].contiguous(), 100),
+             # 160 blocks, past 132 SMs: the clusters run in two waves
+             ("(20, 1100, 1100)", benefit_of(*clouds(20, 1100, 1100)),
+              zeros(20, 1100), 100),
+             ("the window's lower edge (1, 1025, 1025)",
+              benefit_of(*clouds(1, 1025, 1025)), zeros(1, 1025), 100),
+             (f"the largest M that fits (1, 80, {m_edge})",
+              benefit_of(*clouds(1, 80, m_edge)), zeros(1, m_edge), 100)]
     err = 0.0
     counts = {}
+    probes = {}
     for label, bm, p, sweeps in cases:
-        got = solve(bm, p, eps, sweeps, return_stats=True)
+        b, n, m = bm.shape
+        if not cuda_auction.resident_hbm_available(n, m):
+            raise AssertionError(f"auction_hbm {label}: outside the streamed "
+                                 f"window")
+        probe = torch.zeros((b, 2), dtype=torch.int32, device=dev)
+        got = cuda_auction._launch_resident_hbm(bm, p, eps, sweeps, True,
+                                                probe)
         torch.cuda.synchronize()
         ref = plain(bm, p, eps, sweeps, return_stats=True)
-        err = max(err, check(f"auction_hbm {label}", got, ref, exact={0, 2}))
+        err = max(err, check(f"auction_hbm {label}", got, ref,
+                             exact={0, 1, 2}))
         left = int((got[0] < 0).sum())
         if "bound" in label and left == 0:
             raise AssertionError(f"auction_hbm {label}: no row was left at "
                                  f"the sweep bound")
         counts[label] = got[2]
-        log(f"auction_hbm {label}: row_to_col and the {left} rows left at "
-            f"the bound exact, prices within {FLOAT_TOL}; sweeps per phase "
-            f"{got[2][..., 0].T.tolist()}, bidding rows per phase "
-            f"{got[2][..., 1].T.tolist()}")
+        probes[label] = probe.sum(0).tolist()
+        nbuf, cache_k, smem = cuda_auction.cluster_config("resident_hbm", n, m)
+        log(f"auction_hbm {label} ({nbuf} slot buffers, {cache_k} columns "
+            f"cached a row, {smem} bytes of shared memory): row_to_col, prices "
+            f"and stats exact ({left} "
+            f"rows left at the bound); the slowest element's sweeps per phase "
+            f"{got[2][..., 0].max(0).values.tolist()}, bidding rows per "
+            f"phase (all elements) {got[2][..., 1].sum(0).tolist()}; bids "
+            f"the cache answered {probes[label][0]}, rows read "
+            f"{probes[label][1]}")
         # the sweep route on the same inputs: the same matching and prices
         r_k, p_k = assignment.auction_lap(-bm, price=p, return_price=True,
                                           max_sweeps=sweeps, **kw)
@@ -1120,48 +1214,101 @@ def streamed_kernel_phase(dev, gen, stats):
                                           max_sweeps=sweeps,
                                           use_resident=False, **kw)
         check(f"auction_lap one launch vs sweep route {label}", (r_k, p_k),
-              (r_s, p_s), exact={0})
-    log("auction_lap: the one-launch route equals the sweep route "
-        "(use_resident=False) at all five cases")
+              (r_s, p_s), exact={0, 1})
+    log(f"auction_lap: the one-launch route equals the sweep route "
+        f"(use_resident=False) at all {len(cases)} cases")
+    # one column past the edge: the state no longer fits, auction_lap
+    # sweeps (row_top2, col_winner_max) and equals use_resident=False
+    past = benefit_of(*clouds(1, 80, m_edge + 1))
+    if cuda_auction.resident_hbm_available(80, m_edge + 1):
+        raise AssertionError(f"auction_hbm: (80, {m_edge + 1}) is inside the "
+                             f"streamed window")
+    before = (solve.launches, cuda_auction.row_top2.launches)
+    r_k, p_k = assignment.auction_lap(-past, return_price=True,
+                                      max_sweeps=100, **kw)
+    if (solve.launches != before[0]
+            or cuda_auction.row_top2.launches == before[1]):
+        raise AssertionError(f"auction_lap (1, 80, {m_edge + 1}): did not "
+                             f"take the sweep route")
+    check(f"auction_lap (1, 80, {m_edge + 1}) vs use_resident=False",
+          (r_k, p_k), assignment.auction_lap(-past, return_price=True,
+                                             max_sweeps=100,
+                                             use_resident=False, **kw),
+          exact={0, 1})
+    log(f"auction_lap (1, 80, {m_edge + 1}), one column past the streamed "
+        f"kernel's state: the sweep route, equal to use_resident=False")
 
-    # the bound counts what this run's data needs: a row that bids reads
-    # its benefit row once (a subtraction and a comparison per entry);
-    # prices in and out, row_to_col out
+    # the bound: each input read once (the benefit, the prices), each output
+    # written once; the operations this run's data needs, a subtraction and
+    # a comparison for each entry of the rows read (the probe's count: the
+    # bids the cache answers read none)
     warm = counts["warm (9, 2048, 2048)"]
+    cold = counts["cold (9, 2048, 2048)"]
     rows_bid = int(warm[..., 1].sum())
-    out = solve(benefit2, warm_price, eps, 100)
-    nbytes = rows_bid * 2048 * 4 + sum(
-        t.numel() * t.element_size() for t in (warm_price, *out))
-    stats["auction_solve_resident_hbm"] = dict(
+    rows_read = probes["warm (9, 2048, 2048)"][1]
+    out = solve(benefit2, warm_price, eps, 100, return_stats=True)
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (benefit2, warm_price, *out))
+    # the rows the first sweeps read (max_sweeps 1; the second phase's
+    # first sweep is partly answered by the first phase's caches)
+    first_read = {}
+    for sfx, bm, p in (("", benefit2, warm_price), ("_cold", benefit, zero)):
+        probe = torch.zeros((9, 2), dtype=torch.int32, device=dev)
+        cuda_auction._launch_resident_hbm(bm, p, eps, 1, probe=probe)
+        first_read[sfx] = int(probe[:, 1].sum())
+    st = dict(
         shape="(9, 2048, 2048), warm", max_abs_err=err,
         ms=many_ms(lambda: solve(benefit2, warm_price, eps, 100), 10, 5),
         plain_ms=median_ms(lambda: plain(benefit2, warm_price, eps, 100), 3),
         ms_cold=many_ms(lambda: solve(benefit, zero, eps, 100), 10, 5),
+        ms_first_sweeps=many_ms(lambda: solve(benefit2, warm_price, eps, 1),
+                                10, 5),
+        ms_first_sweeps_cold=many_ms(lambda: solve(benefit, zero, eps, 1),
+                                     10, 5),
         ms_sweep_route=median_ms(lambda: assignment.auction_lap(
             -benefit2, price=warm_price, max_sweeps=100, use_resident=False,
             **kw), 3),
         ms_sweep_route_cold=median_ms(lambda: assignment.auction_lap(
             -benefit, max_sweeps=100, use_resident=False, **kw), 3),
-        **bound_of(2 * rows_bid * 2048, nbytes))
-    # the yardstick for row 10: the large kernel (the cluster auction with
-    # its split row pass) on the same inputs, past its size gate
+        rows_read=rows_read,
+        **bound_of(2 * rows_read * 2048, nbytes))
+    for sfx, rows in first_read.items():
+        st[f"gbs_first_sweeps{sfx}"] = (
+            rows * 2048 * 4 / (st["ms_first_sweeps" + sfx] * 1e6))
+    # the per-sweep split: the sweeps after each phase's first, of the
+    # slowest element (the launch lasts as long as it does)
+    for sfx, c in (("", warm), ("_cold", cold)):
+        tail = int(c[..., 0].max(0).values.sum()) - len(eps)
+        st[f"ms_per_tail_sweep{sfx}"] = (
+            (st["ms" + sfx] - st["ms_first_sweeps" + sfx]) / max(tail, 1))
+    # the large kernel (the same cluster sweep, past its size gate) on the
+    # same inputs
     for label, bm, p in (("", benefit2, warm_price), ("_cold", benefit, zero)):
         check(f"auction_large at (9, 2048, 2048){label}",
               cuda_auction._launch_large(bm, p, eps, 100, return_stats=True),
               plain(bm, p, eps, 100, return_stats=True), exact={0, 1, 2})
-        stats["auction_solve_resident_hbm"][f"ms_large_kernel{label}"] = \
-            many_ms(lambda: cuda_auction._launch_large(bm, p, eps, 100), 10,
-                    5)
+    stats["auction_solve_resident_hbm"] = st
     log("auction_large at (9, 2048, 2048), cold and warm: row_to_col, "
         "prices and stats exact")
-    cold = counts["cold (9, 2048, 2048)"]
-    log(f"auction_hbm (9, 2048, 2048): warm {rows_bid} bidding rows in "
-        f"{int(warm[..., 0].sum())} element-sweeps "
-        f"(most in one phase of one element {int(warm[..., 0].max())}), "
-        f"cold {int(cold[..., 1].sum())} bidding rows in "
-        f"{int(cold[..., 0].sum())} element-sweeps (most "
-        f"{int(cold[..., 0].max())}); every row bidding in every sweep to "
-        f"the bound would read {9 * 2 * 100 * 2048 * 2048 * 4 / 1e9:.1f} GB")
+    log(f"auction_hbm (9, 2048, 2048): warm {st['ms']:.4f} ms (first sweeps "
+        f"{st['ms_first_sweeps']:.4f}: {first_read['']} rows read, "
+        f"{first_read[''] * 2048 * 4 / 1e6:.1f} MB at "
+        f"{st['gbs_first_sweeps']:.0f} GB/s; then "
+        f"{st['ms_per_tail_sweep'] * 1e3:.2f}"
+        f" us a tail sweep of the slowest element's "
+        f"{int(warm[..., 0].max(0).values.sum()) - len(eps)}), cold "
+        f"{st['ms_cold']:.4f} ms (first sweeps {st['ms_first_sweeps_cold']:.4f}"
+        f": {first_read['_cold']} rows read, "
+        f"{first_read['_cold'] * 2048 * 4 / 1e6:.1f} MB at "
+        f"{st['gbs_first_sweeps_cold']:.0f} GB/s; then "
+        f"{st['ms_per_tail_sweep_cold'] * 1e3:.2f} us a tail sweep of "
+        f"{int(cold[..., 0].max(0).values.sum()) - len(eps)}); warm "
+        f"{rows_bid} bidding rows, {rows_read} rows read, "
+        f"in {int(warm[..., 0].sum())} element-sweeps, cold "
+        f"{int(cold[..., 1].sum())} in {int(cold[..., 0].sum())}; bound "
+        f"{st['bound_ms']:.5f} ms by {st['bound_by']} (the benefit read "
+        f"once, {nbytes / 1e6:.1f} MB; {2 * rows_read * 2048 / 1e6:.1f} M "
+        f"operations), {100 * st['bound_ms'] / st['ms']:.1f}% of it")
 
 
 def scene():
@@ -2468,7 +2615,15 @@ def banded_kernel_phase(dev, tmp, stats):
     views 1-7 a little off against the observed views, Hilbert-sorted), and
     at the robot's downsample-2 LAP, (9, 2048, 2048) with w=512 (Morton);
     cold and warm (the cold solve's prices, the source moved a little),
-    carry off and on."""
+    carry off and on; then w=128, w=M-128, B=1, 20 elements, one shape in
+    each of the cluster design's other configurations (one slot buffer
+    with the target points in shared memory, (1, 6144, 6144); two with
+    them in device memory, (1, 6656, 6656); one with them in device memory,
+    (1, 8192, 8192), cold and warm, carry off and on) and a shape past its
+    shared memory, each with the design and configuration it took
+    (cuda_auction.banded_route, cluster_config). Times: warm and cold, the first sweeps
+    alone and the rest per sweep, beside the global-state design on the
+    same inputs."""
     from reart_tpu_torch.data.sapien import SapienDataset
     from reart_tpu_torch.data.synth import make_robot_sample, make_sapien_scene
     from reart_tpu_torch.ops import cuda_auction
@@ -2486,6 +2641,26 @@ def banded_kernel_phase(dev, tmp, stats):
         moved = s + 0.002 * torch.from_numpy(
             rng.randn(*src.shape).astype(np.float32)).to(dev)
         return s.contiguous(), moved.contiguous(), t.contiguous()
+
+    seen = set()
+
+    def config_of(n):
+        """The design an (n, n) element takes, and its configuration as
+        the library reports it (held to cuda_auction.cluster_plan)."""
+        tile = band_tile(n)
+        route = cuda_auction.banded_route(n, n, tile)
+        if route != "shared":
+            seen.add(route)
+            return f"the {route} design"
+        cfg = cuda_auction.cluster_config("banded", n, n, tile)
+        plan = cuda_auction.cluster_plan("banded", n, n, tile)
+        if cfg != plan:
+            raise AssertionError(f"auction_banded ({n}, {n}): the library "
+                                 f"takes {cfg}, cluster_plan says {plan}")
+        nbuf, pts, smem = cfg
+        seen.add((nbuf, pts))
+        return (f"the shared design, {nbuf} slot buffers, the target points "
+                f"in {'shared' if pts else 'device'} memory, {smem} bytes")
 
     root = make_sapien_scene(os.path.join(tmp, "sapien_kernel"), n_views=8,
                              n_points=4096, n_parts=6)
@@ -2516,12 +2691,67 @@ def banded_kernel_phase(dev, tmp, stats):
                 err = max(err, check(name, got, ref, exact={0, 1, 2}))
                 counts[name] = got[2]
                 st = got[2]
-                log(f"{name}: row_to_col, prices and stats exact; sweeps "
-                    f"per phase {st[..., 0].T.tolist()}, bidding rows "
-                    f"{st[..., 1].sum(0).tolist()}, bidding tiles "
-                    f"{st[..., 2].sum(0).tolist()} (of {n // band_tile(n)} "
-                    f"a sweep an element), duplicate columns "
+                log(f"{name} ({config_of(n)}): row_to_col, prices and stats "
+                    f"exact; sweeps per phase {st[..., 0].T.tolist()}, "
+                    f"bidding rows {st[..., 1].sum(0).tolist()}, bidding "
+                    f"tiles {st[..., 2].sum(0).tolist()} (of "
+                    f"{n // band_tile(n)} a sweep an element), duplicate "
+                    f"columns "
                     f"{int(n * b - sum(len(torch.unique(r)) for r in got[0]))}")
+
+    # the edges: the narrowest and the widest window, one element, more
+    # elements than fit the card at once, and past the cluster design's
+    # shared memory (the global-state design)
+    (src, moved, tgt), _ = shapes["(7, 4096, 4096) w=1024"]
+    gen = np.random.RandomState(5)
+
+    def clouds(b, n):
+        a = gen.randn(b, n, 3).astype(np.float32)
+        s, t, _, _ = _curve_sort(
+            torch.from_numpy(a + 0.02 * gen.randn(b, n, 3).astype(
+                np.float32)).to(dev), torch.from_numpy(a).to(dev), 512, None)
+        return s.contiguous(), t.contiguous()
+
+    b20 = clouds(20, 2048)
+    past = clouds(1, 12288)
+    s8k, t8k = clouds(1, 8192)
+    moved8k = (s8k + 0.002 * torch.from_numpy(gen.randn(1, 8192, 3).astype(
+        np.float32)).to(dev)).contiguous()
+    price8k = solve(s8k, t8k, torch.zeros((1, 8192), device=dev), eps, 100,
+                    512)[1]
+    # (label, src, tgt, w, carry, prices; None: zeros)
+    edges = [("w=128 (7, 4096, 4096)", src, tgt, 128, False, None),
+             ("w=M-128 (7, 4096, 4096)", src, tgt, 4096 - 128, False, None),
+             ("B = 1 (1, 4096, 4096) w=1024", src[:1].contiguous(),
+              tgt[:1].contiguous(), 1024, False, None),
+             ("(20, 2048, 2048) w=512", *b20, 512, False, None),
+             ("(1, 6144, 6144) w=512", *clouds(1, 6144), 512, False, None),
+             ("(1, 6656, 6656) w=512", *clouds(1, 6656), 512, False, None),
+             ("(1, 8192, 8192) w=512 cold carry=False", s8k, t8k, 512,
+              False, None),
+             ("(1, 8192, 8192) w=512 cold carry=True", s8k, t8k, 512, True,
+              None),
+             ("(1, 8192, 8192) w=512 warm carry=True", moved8k, t8k, 512,
+              True, price8k),
+             ("past the shared memory (1, 12288, 12288) w=256", *past, 256,
+              False, None)]
+    for label, s, t, w, carry, p in edges:
+        b, n = s.shape[:2]
+        if p is None:
+            p = torch.zeros((b, n), device=dev)
+        got = solve(s, t, p, eps, 100, w, carry=carry, return_stats=True)
+        torch.cuda.synchronize()
+        ref = plain(s, t, p, eps, 100, w, carry=carry, return_stats=True)
+        err = max(err, check(f"auction_banded {label}", got, ref,
+                             exact={0, 1, 2}))
+        log(f"auction_banded {label} ({config_of(n)}): row_to_col, prices "
+            f"and stats exact; sweeps per phase "
+            f"{got[2][..., 0].max(0).values.tolist()} (slowest element), "
+            f"bidding rows {got[2][..., 1].sum(0).tolist()}")
+    if seen != {(2, 1), (1, 1), (2, 0), (1, 0), "global"}:
+        raise AssertionError(f"auction_banded: the cases took {seen}, not "
+                             f"every configuration of the cluster design "
+                             f"and the global-state design")
 
     # timed at the sapien shape, warm, carry off (the fit's call)
     (src, moved, tgt), w = shapes["(7, 4096, 4096) w=1024"]
@@ -2542,21 +2772,42 @@ def banded_kernel_phase(dev, tmp, stats):
     out = solve(moved, tgt, warm_price, eps, 100, w)
     nbytes = sum(t.numel() * t.element_size()
                  for t in (moved, tgt, warm_price, *out))
-    stats["auction_solve_banded"] = dict(
+
+    def design(name, p, sweeps):
+        return lambda: cuda_auction._launch_banded(
+            moved if p is warm_price else src, tgt, p, eps, sweeps, w, tile,
+            False, name)
+
+    s2 = dict(
         shape="(7, 4096, 4096) w=1024, warm", max_abs_err=err,
         ms=many_ms(lambda: solve(moved, tgt, warm_price, eps, 100, w), 5, 5),
         ms_cold=many_ms(lambda: solve(src, tgt, zero, eps, 100, w), 5, 5),
+        ms_first_sweeps=many_ms(design("shared", warm_price, 1), 5, 5),
+        ms_first_sweeps_cold=many_ms(design("shared", zero, 1), 5, 5),
+        ms_global_design=many_ms(design("global", warm_price, 100), 5, 5),
+        ms_global_design_cold=many_ms(design("global", zero, 100), 5, 5),
         plain_ms=median_ms(
             lambda: plain(moved, tgt, warm_price, eps, 100, w), 2),
         band_ops=band_ops, pass_ops=pass_ops, tile_ops=tile_ops,
         **bound_of(band_ops + pass_ops, nbytes))
-    s2 = stats["auction_solve_banded"]
-    log(f"auction_banded (7, 4096, 4096) w=1024: warm {s2['ms']:.4f} ms, cold "
-        f"{s2['ms_cold']:.4f} ms, plain {s2['plain_ms']:.1f} ms; bound "
-        f"{s2['bound_ms']:.5f} ms by {s2['bound_by']} (band distances "
-        f"{band_ops / 1e6:.1f} M operations, the bidding rows' window "
-        f"passes {pass_ops / 1e6:.1f} M (whole bidding tiles: "
-        f"{tile_ops / 1e6:.1f} M), {nbytes / 1e6:.2f} MB)")
+    later = int(st[..., 0].max(0).values.sum()) - len(eps)
+    for sfx in ("", "_cold"):
+        s2[f"ms_per_later_sweep{sfx}"] = (
+            (s2["ms" + sfx] - s2["ms_first_sweeps" + sfx]) / max(later, 1))
+    stats["auction_solve_banded"] = s2
+    log(f"auction_banded (7, 4096, 4096) w=1024: warm {s2['ms']:.4f} ms "
+        f"(first sweeps {s2['ms_first_sweeps']:.4f}, then "
+        f"{s2['ms_per_later_sweep'] * 1e3:.2f} us a sweep of {later}), cold "
+        f"{s2['ms_cold']:.4f} ms (first sweeps "
+        f"{s2['ms_first_sweeps_cold']:.4f}, then "
+        f"{s2['ms_per_later_sweep_cold'] * 1e3:.2f} us a sweep); the "
+        f"global-state design on the same inputs "
+        f"{s2['ms_global_design']:.4f} and {s2['ms_global_design_cold']:.4f} "
+        f"ms; plain {s2['plain_ms']:.1f} ms; bound {s2['bound_ms']:.5f} ms by "
+        f"{s2['bound_by']} (band distances {band_ops / 1e6:.1f} M "
+        f"operations, the bidding rows' window passes {pass_ops / 1e6:.1f} M "
+        f"(whole bidding tiles: {tile_ops / 1e6:.1f} M), "
+        f"{nbytes / 1e6:.2f} MB)")
 
 
 def _record_guard_probes():

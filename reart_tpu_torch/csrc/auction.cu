@@ -41,9 +41,10 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
                    EpsList eps, int max_sweeps, int nbuf,
                    long long* __restrict__ row_to_col,
                    float* __restrict__ price_out) {
-  auction::cluster_solve<kCluster, kVec, false>(
-      benefit, price_in, n, m, eps, max_sweeps, nbuf, row_to_col, price_out,
-      nullptr);
+  const int b = blockIdx.x / kCluster;
+  auction::cluster_solve<kCluster, auction::DenseRows<kVec>, false, 0, false>(
+      {benefit + (size_t)b * n * m, m}, price_in, n, m, eps, max_sweeps, nbuf,
+      0, 0, row_to_col, price_out, nullptr, nullptr);
 }
 
 }  // namespace
@@ -59,9 +60,9 @@ extern "C" int reart_auction_resident(const float* benefit,
   EpsList list{};
   for (int e = 0; e < n_eps; ++e) list.v[e] = eps[e];
   list.n = n_eps;
-  const int nbuf = auction::cluster_buffers(n, m, false);
+  size_t smem = 0;
+  const int nbuf = auction::cluster_fit(n, m, false, 0, kCluster, 0, 0, smem);
   if (nbuf == 0) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = auction::cluster_smem(n, m, nbuf, false);
   const bool vec = m % 4 == 0 &&
                    reinterpret_cast<uintptr_t>(benefit) % 16 == 0;
   auto kernel = vec ? auction_kernel<true> : auction_kernel<false>;

@@ -20,42 +20,45 @@
 // without a column takes its best in-band column under the final prices.
 // Writes row_to_col (B, N) int64 in sorted column indices, the final
 // prices, and per element and phase the sweeps run, the rows that bid and
-// the row tiles that bid (stats (B, n_eps, 3) int32, zeroed by the caller).
+// the row tiles that bid (stats (B, n_eps, 3) int32).
 //
-// What bounds it on an H100: arithmetic. The band's distances are
-// N * w * 9 operations per element (sapien: 4096 x 1024 x 7 elements,
-// 264 M), recomputed for every row that bids in a sweep; the bytes (points,
-// prices, the row map) are about 1 MB. The TPU kernel kept the (N, w) band
-// in VMEM; here that is 16 MB per element, more than a block's shared
-// memory and, for 7 elements, more than the 50 MB L2, so a bidding row
-// recomputes its w distances from the points (12 KB of target points per
-// element, which stay in L1 and L2).
+// What bounds it on an H100: the band's distances are N * w * 9 operations
+// per element (sapien: 4096 x 1024 x 7 elements, 264 M), recomputed for
+// every row that bids; the bytes (points, prices, the row map) are about
+// 1 MB. The TPU kernel kept the (N, w) band in VMEM; here that is 16 MB per
+// element, more than a block's shared memory, so a bidding row recomputes
+// its w distances from the points. Every phase of the sapien solves runs
+// to its 100-sweep bound (rows whose good columns lie outside their window
+// bid forever), about 100 rows an element bidding in each late sweep: the
+// fixed cost of a sweep sets the time.
 //
-// Design: the one-launch scheme of auction_hbm.cu. One element's sweep is
-// spread over a thread-block cluster of 8 blocks of 1024 threads (7 x 8 = 56
-// blocks at the sapien shape), and convergence is decided on the device.
-//   * Row pass: the cluster's 256 warps share the rows; a warp takes a row
-//     without a column, its lanes walk the row's window in ascending column
-//     order against a copy of the prices in shared memory, the shuffle merge
-//     of auction_common.cuh gives the top two, and lane 0 posts one 64-bit
-//     atomicMax on the column's bid key (bid bits, then the inverted row),
-//     which merges the overlapping windows of neighbouring tiles. A tile
-//     whose rows all own a column bids nothing, so it costs nothing: the
-//     TPU kernel's converged-tile skip is the per-row test here.
-//   * cluster.sync()
-//   * Column pass: the cluster's 8192 threads share the columns, a column
-//     always with the same thread; a column with a bid adds it to its price,
-//     frees its old owner, seats the winner and clears its key. Old owners
-//     and winners are disjoint (owners do not bid).
-//   * cluster.sync(), then every block reads the owned count and the prices.
-// The row map r2c, the owner map c2r, prices, bid keys, the tile flags and
-// the owned count live in global memory; what another block wrote is read
-// with __ldcg, past the SM's own L1. Built with -fmad=false and IEEE sqrt,
-// so each value rounds as in the plain PyTorch version.
+// Design, where the state fits a block's shared memory (N = M up to 9216
+// at the fit's tiles): the cluster auction of auction_cluster.cuh with
+// BandRows (a cluster of 8 blocks of 1024 threads an element; every block
+// holds prices, owners, flags, bid keys, double-buffered slots, the tile
+// flags and, where they fit, the target points: 181 KB at N = M = 4096;
+// one cluster barrier a sweep and nothing re-read from device memory
+// between sweeps), with the split row pass for the late sweeps (about 100
+// bidding rows an element, each read by a few warps of its block). The
+// carry pass sends each seated row's decision to every block through its
+// slot. Measured on the card and not taken (reart_tpu_torch.bench_auction
+// and the kernels' notes): the candidate cache of auction_hbm.cu (as fast
+// on the sapien LAP, slower on random clouds: the late sweeps are paced by
+// their barriers, not by the window's arithmetic) and the tail on one
+// block (slower: the late sweeps' 100 rows are too many for one SM, and
+// the owners would have to be copied back into every block at each
+// phase's end).
+//
+// Past that (N = M up to 32768 with a band of 128), the global-state design
+// of banded_global_kernel: the cluster's warps share the rows, bids meet
+// in 64-bit atomicMax keys in device memory, two cluster barriers a sweep,
+// the state read past L1 with __ldcg. The wrapper routes by size
+// (cuda_auction.banded_route). Both are built with -fmad=false and IEEE
+// sqrt, so each value rounds as in the plain PyTorch version.
 
 #include <cooperative_groups.h>
 
-#include "auction_common.cuh"
+#include "auction_cluster.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -68,6 +71,8 @@ constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
 constexpr int kStride = kCluster * kThreads;
 constexpr int kWarpStride = kCluster * kWarps;
+// columns cached a row by the cluster design (0: none)
+constexpr int kCacheK = REART_BAND_CACHE_K;
 
 struct Band {
   int n, m, w, tile;
@@ -112,8 +117,9 @@ __device__ __forceinline__ void band_top2(const float* __restrict__ src,
   auction::top2_warp_merge(b1, j1, b2);
 }
 
+// The global-state design (shapes past the cluster design's shared memory).
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
-auction_banded_kernel(const float* __restrict__ src,
+banded_global_kernel(const float* __restrict__ src,
                       const float* __restrict__ tgt,
                       const float* __restrict__ price_in, Band bd,
                       EpsList eps, int max_sweeps, int carry,
@@ -266,12 +272,140 @@ auction_banded_kernel(const float* __restrict__ src,
   }
 }
 
+// The banded rows of the cluster design: row r's domain is the w columns of
+// its tile's window; tgt is this element's (M, 3) in device memory until
+// cluster_solve copies it into shared memory (when smem_points() > 0).
+struct BandRows {
+  static constexpr bool kBand = true;
+  const float* __restrict__ src;  // this element's (N, 3)
+  const float* tgt;
+  int m, w, tile, tgt_in_smem;
+
+  __device__ __forceinline__ int smem_points() const {
+    return tgt_in_smem ? m : 0;
+  }
+  __device__ __forceinline__ int units(int) const { return w; }
+
+  __device__ __forceinline__ float dist(float sx, float sy, float sz,
+                                        int j) const {
+    const float dx = sx - tgt[3 * j];
+    const float dy = sy - tgt[3 * j + 1];
+    const float dz = sz - tgt[3 * j + 2];
+    float acc = 0.0f + dx * dx;
+    acc = acc + dy * dy;
+    acc = acc + dz * dz;
+    return -__fsqrt_rn(acc);
+  }
+
+  // the benefit of (r, j)
+  __device__ __forceinline__ float value(int r, int j) const {
+    return dist(__ldg(src + 3 * r), __ldg(src + 3 * r + 1),
+                __ldg(src + 3 * r + 2), j);
+  }
+
+  template <class F>
+  __device__ __forceinline__ void walk(int r, const float* price, int q0,
+                                       int q1, int lane, F&& f) const {
+    const float sx = __ldg(src + 3 * r);
+    const float sy = __ldg(src + 3 * r + 1);
+    const float sz = __ldg(src + 3 * r + 2);
+    const int o = band_offset(r / tile, Band{0, m, w, tile});
+#pragma unroll 4
+    for (int u = q0 + lane; u < q1; u += 32) {
+      const int j = o + u;
+      const float bx = dist(sx, sy, sz, j);
+      f(bx, bx - price[j], j);
+    }
+  }
+};
+
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
+banded_cluster_kernel(const float* __restrict__ src,
+                      const float* __restrict__ tgt,
+                      const float* __restrict__ price_in, Band bd,
+                      EpsList eps, int max_sweeps, int carry, int nbuf,
+                      int tgt_in_smem, long long* __restrict__ row_to_col,
+                      float* __restrict__ price_out,
+                      int* __restrict__ stats) {
+  const int b = blockIdx.x / kCluster;
+  const BandRows rows{src + (size_t)b * bd.n * 3, tgt + (size_t)b * bd.m * 3,
+                      bd.m, bd.w, bd.tile, tgt_in_smem};
+  auction::cluster_solve<kCluster, BandRows, true, kCacheK, false>(
+      rows, price_in, bd.n, bd.m, eps, max_sweeps, nbuf, carry, bd.tile,
+      row_to_col, price_out, stats, nullptr);
+}
+
+// The target points in shared memory where they fit with the state, else
+// in device memory: the slot buffers (0: the state does not fit),
+// `in_smem` 1 where the points are in shared memory, `smem` the bytes.
+int fit(int n, int m, int tile, int& in_smem, size_t& smem) {
+  in_smem = 1;
+  int nbuf =
+      auction::cluster_fit(n, m, true, kCacheK, kCluster, m, n / tile, smem);
+  if (nbuf == 0) {
+    in_smem = 0;
+    nbuf = auction::cluster_fit(n, m, true, kCacheK, kCluster, 0, n / tile,
+                                smem);
+  }
+  return nbuf;
+}
+
 }  // namespace
 
-// scratch, all written before read: key (B, M) uint64, c2r (B, M), r2c
-// (B, N), tile_flag (B, N / tile), owned (B,) int32. price_out doubles as
-// the working prices. stats (B, n_eps, 3) int32 must come in zeroed.
+// What reart_auction_banded takes for an (n, m) element with row tiles of
+// `tile` (n % tile == 0): out[0] the slot buffers (0: the state does not
+// fit), out[1] 1 where the target points sit in shared memory, out[2] the
+// shared-memory bytes (0 where it does not fit).
+extern "C" int reart_auction_banded_config(int n, int m, int tile,
+                                           int* out) {
+  if (n < 1 || m < n || tile < 1 || n % tile != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  size_t smem = 0;
+  int in_smem = 0;
+  const int nbuf = fit(n, m, tile, in_smem, smem);
+  out[0] = nbuf;
+  out[1] = nbuf ? in_smem : 0;
+  out[2] = nbuf ? static_cast<int>(smem) : 0;
+  return 0;
+}
+
+// The cluster design (cuda_auction.banded_route "shared": N <= M and the
+// state in a block's shared memory). stats (B, n_eps, 3) int32 is written
+// by the kernel.
 extern "C" int reart_auction_banded(
+    const float* src, const float* tgt, const float* price_in, int batch,
+    int n, int m, int w, int tile, const float* eps, int n_eps,
+    int max_sweeps, int carry, long long* row_to_col, float* price_out,
+    int* stats, void* stream) {
+  if (n_eps < 1 || n_eps > auction::kMaxEps || batch < 1 || n < 1 ||
+      m < n || w < 1 || w > m || tile < 1 || n % tile != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  EpsList list{};
+  for (int e = 0; e < n_eps; ++e) list.v[e] = eps[e];
+  list.n = n_eps;
+  const Band bd{n, m, w, tile};
+  size_t smem = 0;
+  int in_smem = 0;
+  const int nbuf = fit(n, m, tile, in_smem, smem);
+  if (nbuf == 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      banded_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  banded_cluster_kernel<<<batch * kCluster, kThreads, smem,
+                          static_cast<cudaStream_t>(stream)>>>(
+      src, tgt, price_in, bd, list, max_sweeps, carry, nbuf, in_smem,
+      row_to_col, price_out, stats);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The global-state design (banded_route "global"). Scratch, all written
+// before read: key (B, M) uint64, c2r (B, M), r2c (B, N), tile_flag (B,
+// N / tile), owned (B,) int32. price_out doubles as the working prices.
+// stats (B, n_eps, 3) int32 must come in zeroed.
+extern "C" int reart_auction_banded_global(
     const float* src, const float* tgt, const float* price_in, int batch,
     int n, int m, int w, int tile, const float* eps, int n_eps,
     int max_sweeps, int carry, long long* row_to_col, float* price_out,
@@ -287,11 +421,11 @@ extern "C" int reart_auction_banded(
   const Band bd{n, m, w, tile};
   const size_t smem = 4 * (size_t)m;
   cudaError_t err = cudaFuncSetAttribute(
-      auction_banded_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      banded_global_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  auction_banded_kernel<<<batch * kCluster, kThreads, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
+  banded_global_kernel<<<batch * kCluster, kThreads, smem,
+                         static_cast<cudaStream_t>(stream)>>>(
       src, tgt, price_in, bd, list, max_sweeps, carry, row_to_col, price_out,
       key, c2r, r2c, tile_flag, owned, stats);
   return static_cast<int>(cudaGetLastError());

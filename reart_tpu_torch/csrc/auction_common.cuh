@@ -1,5 +1,5 @@
-// Shared by auction.cu, auction_hbm.cu and auction_sweep.cu: the pieces of a
-// Jacobi auction sweep that every kernel must do the same way, so that all
+// Shared by the auction kernels (auction_cluster.cuh, auction_banded.cu,
+// auction_sweep.cu): the pieces of a Jacobi auction sweep that every kernel must do the same way, so that all
 // of them and their plain PyTorch versions pick the same winners.
 //
 //   * bid keys: a bid and its row packed into 64 bits, (order-preserving bid
@@ -106,52 +106,6 @@ __device__ __forceinline__ void top2_warp_redux(float& b1, int& j1,
   b2 = from_ordered(__reduce_max_sync(0xffffffffu, k2));
   b1 = from_ordered(top);
   j1 = j;
-}
-
-// A lane's part of the top-2 of row[j] - price[j] over j < m: the columns
-// j = lane, lane + 32, ..., ascending. j1 is INT_MAX when the lane has none.
-__device__ __forceinline__ void top2_lane(const float* __restrict__ row,
-                                          const float* price, int m, int lane,
-                                          float& b1, int& j1, float& b2) {
-  b1 = -INFINITY;
-  b2 = -INFINITY;
-  j1 = INT_MAX;
-#pragma unroll 4
-  for (int j = lane; j < m; j += 32) {
-    top2_take(b1, j1, b2, row[j] - price[j], j);
-  }
-}
-
-// The same with 16-byte loads; needs m % 4 == 0 and both pointers 16-byte
-// aligned. A lane takes columns 4q..4q+3 for q = lane, lane + 32, ...:
-// ascending, as top2_take wants.
-__device__ __forceinline__ void top2_lane_vec(const float* __restrict__ row,
-                                              const float* price, int m,
-                                              int lane, float& b1, int& j1,
-                                              float& b2) {
-  const float4* row4 = reinterpret_cast<const float4*>(row);
-  const float4* price4 = reinterpret_cast<const float4*>(price);
-  b1 = -INFINITY;
-  b2 = -INFINITY;
-  j1 = INT_MAX;
-#pragma unroll 8
-  for (int q = lane; q < (m >> 2); q += 32) {
-    const float4 x = __ldg(row4 + q);
-    const float4 p = price4[q];
-    top2_take(b1, j1, b2, x.x - p.x, 4 * q);
-    top2_take(b1, j1, b2, x.y - p.y, 4 * q + 1);
-    top2_take(b1, j1, b2, x.z - p.z, 4 * q + 2);
-    top2_take(b1, j1, b2, x.w - p.w, 4 * q + 3);
-  }
-}
-
-// Top-2 of row[j] - price[j] over j < m by one warp; the result is lane 0's.
-// j1 is INT_MAX when m == 0.
-__device__ __forceinline__ void top2_row(const float* __restrict__ row,
-                                         const float* price, int m, int lane,
-                                         float& b1, int& j1, float& b2) {
-  top2_lane(row, price, m, lane, b1, j1, b2);
-  top2_warp_merge(b1, j1, b2);
 }
 
 }  // namespace auction

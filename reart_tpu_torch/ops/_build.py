@@ -33,6 +33,13 @@ NVCC_FLAGS = (
     "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+# The auction kernels' option sizes (csrc/auction_cluster.cuh), passed as
+# -D flags and read by ops/cuda_auction's size gates: the columns the
+# streamed and large kernels cache a row, the banded kernel's (0: none),
+# and the bidding rows at or below which the dense kernels run the rest of
+# a phase on one block. `build(defines=...)` overrides them for a variant.
+DEFINES = {"REART_CACHE_K": 4, "REART_BAND_CACHE_K": 0, "REART_TAIL_ROWS": 32}
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
@@ -51,12 +58,17 @@ SIGNATURES = {
     # row_to_col, price_out, stream
     "reart_auction_resident": (_P, _P, _I, _I, _I, _P, _I, _I, _P, _P, _P),
     # benefit, price_in, B, N, M, eps (host float*), n_eps, max_sweeps,
-    # row_to_col, price_out, key, c2r, assigned, owned, stats, stream
-    "reart_auction_resident_hbm": (_P, _P, _I, _I, _I, _P, _I, _I, _P, _P, _P,
-                                   _P, _P, _P, _P, _P),
+    # row_to_col, price_out, stats, probe, stream
+    "reart_auction_resident_hbm": (_P, _P, _I, _I, _I, _P, _I, _I, _P, _P,
+                                   _P, _P, _P),
     # benefit, price_in, B, N, M, eps (host float*), n_eps, max_sweeps,
-    # row_to_col, price_out, stats, stream
-    "reart_auction_large": (_P, _P, _I, _I, _I, _P, _I, _I, _P, _P, _P, _P),
+    # row_to_col, price_out, stats, probe, stream
+    "reart_auction_large": (_P, _P, _I, _I, _I, _P, _I, _I, _P, _P, _P, _P,
+                            _P),
+    # N, M, tile, out (3 int32: slot buffers, option, shared-memory bytes)
+    "reart_auction_resident_hbm_config": (_I, _I, _I, _P),
+    "reart_auction_large_config": (_I, _I, _I, _P),
+    "reart_auction_banded_config": (_I, _I, _I, _P),
     # query, ref, B, N, M, ref_div, k, out_d, out_i, stream
     "reart_nn_topk": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
     # query, ref, B, N, M, out_d, out_i, out_c, stream
@@ -70,10 +82,15 @@ SIGNATURES = {
     # xyz, new_xyz, B, N, S, r2, nsample, out, stream
     "reart_ball_query": (_P, _P, _I, _I, _I, _F, _I, _P, _P),
     # src, tgt, price_in, B, N, M, w, tile, eps (host float*), n_eps,
+    # max_sweeps, carry, row_to_col, price_out, stats, stream
+    "reart_auction_banded": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _I,
+                             _P, _P, _P, _P),
+    # src, tgt, price_in, B, N, M, w, tile, eps (host float*), n_eps,
     # max_sweeps, carry, row_to_col, price_out, key, c2r, r2c, tile_flag,
     # owned, stats, stream
-    "reart_auction_banded": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _I,
-                             _P, _P, _P, _P, _P, _P, _P, _P, _P),
+    "reart_auction_banded_global": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _I,
+                                    _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                                    _P),
 }
 
 
@@ -95,18 +112,25 @@ def _nvcc() -> str:
     return path
 
 
-def library_path() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _flags(defines: dict | None) -> tuple[str, ...]:
+    return NVCC_FLAGS + tuple(f"-D{k}={v}" for k, v in
+                              sorted({**DEFINES, **(defines or {})}.items()))
+
+
+def library_path(defines: dict | None = None) -> str:
+    h = hashlib.sha256(" ".join(_flags(defines)).encode())
     for src in sources():
         with open(src, "rb") as f:
             h.update(os.path.basename(src).encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"libreart_kernels_{h.hexdigest()[:16]}.so")
 
 
-def build() -> tuple[str, float, str]:
-    """Compile the library if it is missing. Returns (path, seconds spent
-    building, compiler log); seconds is 0.0 when the library existed."""
-    path = library_path()
+def build(defines: dict | None = None) -> tuple[str, float, str]:
+    """Compile the library if it is missing, with `defines` over DEFINES.
+    Returns (path, seconds spent building, compiler log); seconds is 0.0
+    when the library existed."""
+    flags = _flags(defines)
+    path = library_path(defines)
     log_path = path[:-3] + ".log"
     if os.path.exists(path):
         log = ""
@@ -120,7 +144,7 @@ def build() -> tuple[str, float, str]:
     objs = [f"{tmp}.{os.path.basename(s)}.o" for s in cu]
     nvcc = _nvcc()
     t0 = time.perf_counter()
-    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, s],
+    procs = [subprocess.Popen([nvcc, *flags, "-c", "-o", o, s],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                               text=True) for s, o in zip(cu, objs)]
     outs = [p.communicate()[0] for p in procs]
@@ -147,10 +171,15 @@ def build() -> tuple[str, float, str]:
     return path, seconds, log
 
 
+def load_library(defines: dict | None = None) -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library, with argtypes set;
+    `defines` over DEFINES gives a variant (its own file)."""
+    return _load(tuple(sorted((defines or {}).items())))
+
+
 @functools.lru_cache(maxsize=None)
-def load_library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library, with argtypes set."""
-    path, _, _ = build()
+def _load(defines: tuple) -> ctypes.CDLL:
+    path, _, _ = build(dict(defines))
     lib = ctypes.CDLL(path)
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)

@@ -5,11 +5,14 @@ their plain PyTorch versions; counterpart of reart_tpu/ops/pallas_auction.py.
   * `auction_solve_resident`: the whole epsilon-scaled solve in one launch,
     for N*M <= 1024^2 (Pallas `auction_solve_resident`);
   * `auction_solve_resident_hbm`: the same solve in one launch for
-    1024^2 < N*M <= 2048^2, the benefit streamed from device memory by a
-    cluster of blocks per element (Pallas `auction_solve_resident_hbm`);
+    1024^2 < N*M <= 2048^2 where its state fits a block's shared memory,
+    the benefit streamed from device memory by a cluster of blocks per
+    element, with a candidate cache per row and the tail of a phase on one
+    block (Pallas `auction_solve_resident_hbm`);
   * `auction_solve_large`: the same solve in one launch past 2048^2, where
-    the JAX package sweeps (the cluster kernel of `auction_solve_resident`,
-    whose state still fits a block's shared memory up to M ~ 14000);
+    the JAX package sweeps (the cluster kernel of `auction_solve_resident`
+    with the streamed kernel's cache and tail where they fit, whose state
+    still fits a block's shared memory up to M ~ 14000);
   * `row_top2`, `col_winner_max`: the two matrix-shaped passes of one sweep
     of a still larger problem (Pallas `row_top2_pallas`,
     `col_winner_max_pallas`), driven by ops/assignment._auction_phase; on
@@ -18,9 +21,11 @@ their plain PyTorch versions; counterpart of reart_tpu/ops/pallas_auction.py.
   * `auction_solve_banded`: the banded solve of a giant problem from
     curve-sorted points, each row tile bidding inside a window of w sorted
     columns (Pallas `auction_solve_banded`), driven by
-    ops/assignment.auction_lap_points. The TPU kernel's `group` (batch
-    elements packed into one VMEM instance) does not change results and is
-    not carried over; the target cloud is taken row-major (B, M, 3).
+    ops/assignment.auction_lap_points, by the cluster design where its
+    state fits a block's shared memory and the global-state design past
+    that (`banded_route`). The TPU kernel's `group` (batch elements packed
+    into one VMEM instance) does not change results and is not carried
+    over; the target cloud is taken row-major (B, M, 3).
 
 Each wrapper takes its plain version for a CPU tensor and launches its kernel
 for a CUDA tensor (or raises); `<wrapper>.launches` counts kernel launches.
@@ -46,10 +51,16 @@ RESIDENT_HBM_MAX_ELEMS = 2048 * 2048
 MAX_EPS = 8
 # shared memory a block can use (227 KB) less the kernels' static part
 _MAX_SMEM = 232448 - 1024
-# the cluster kernel's (csrc/auction_cluster.cuh): its limit, and the split
-# row pass's scratch of the large kernel (256 row indices, 32 partial top-2)
+# the cluster kernels' (csrc/auction_cluster.cuh): its limit, and the split
+# row pass's scratch (256 row indices, 32 partial top-2)
 _CLUSTER_MAX_SMEM = 232448 - 64
-_SPLIT_BYTES = 4 * 256 + 12 * 32
+_SPLIT_ROWS = 256
+_SPLIT_BYTES = 4 * _SPLIT_ROWS + 12 * 32
+_CLUSTER = 8
+# the candidate cache: columns cached a row by the streamed and large
+# kernels and by the banded kernel (their kCacheK, set by ops/_build)
+CACHE_K = _build.DEFINES["REART_CACHE_K"]
+BAND_CACHE_K = _build.DEFINES["REART_BAND_CACHE_K"]
 
 
 def auction_solve_resident_plain(benefit: torch.Tensor, price: torch.Tensor,
@@ -165,10 +176,11 @@ def auction_solve_large(benefit: torch.Tensor, price: torch.Tensor,
 
 
 def _launch_large(benefit, price, eps_list, max_sweeps: int,
-                  return_stats: bool = False):
+                  return_stats: bool = False, probe=None):
     """The large kernel's launch on checked CUDA inputs, at any N <= M whose
     state fits a block's shared memory; the wrapper above gates it to its
-    window."""
+    window. `probe`, a zeroed (B, 2) int32 tensor, gets per element the
+    bids the cache answered and the rows read."""
     b, n, m = benefit.shape
     dev = benefit.device
     r2c = torch.empty((b, n), dtype=torch.int64, device=dev)
@@ -182,7 +194,8 @@ def _launch_large(benefit, price, eps_list, max_sweeps: int,
             benefit.data_ptr(), price.data_ptr(), b, n, m,
             ctypes.cast(eps_arr, ctypes.c_void_p), len(eps_list),
             int(max_sweeps), r2c.data_ptr(), price_out.data_ptr(),
-            stats.data_ptr(), _build.stream_of(benefit))
+            stats.data_ptr(), None if probe is None else probe.data_ptr(),
+            _build.stream_of(benefit))
     _build.check_launch("auction_solve_large", err)
     auction_solve_large.launches += 1
     return (r2c, price_out, stats) if return_stats else (r2c, price_out)
@@ -191,13 +204,60 @@ def _launch_large(benefit, price, eps_list, max_sweeps: int,
 auction_solve_large.launches = 0
 
 
-def _cluster_smem(n: int, m: int, nbuf: int) -> int:
-    """The large kernel's shared memory (csrc/auction_cluster.cuh
-    cluster_smem): keys, prices and owners 16 bytes a column, nbuf slot
-    buffers 8 bytes a row (rounded to 16 bytes), a flag a row, then the
-    split row pass's scratch, 16-byte aligned."""
-    base = 16 * m + 8 * ((nbuf * n + 1) & ~1) + n
-    return ((base + 15) & ~15) + _SPLIT_BYTES
+def _align16(x: int) -> int:
+    return (x + 15) & ~15
+
+
+def _cluster_smem(n: int, m: int, nbuf: int, cache_k: int = 0,
+                  tgt_points: int = 0, ntiles: int = 0) -> int:
+    """The shared memory of the cluster kernels with the split row pass
+    (csrc/auction_cluster.cuh cluster_layout): keys, prices and owners 16
+    bytes a column, nbuf slot buffers 8 bytes a row (rounded to 16 bytes),
+    a flag a row; then, each 16-byte aligned, the split row pass's scratch,
+    the cache (a partial list a warp and per row of a block cache_k
+    (benefit, column) pairs and a bound), 12 bytes a target point; then a
+    flag a row tile."""
+    end = _align16(16 * m + 8 * ((nbuf * n + 1) & ~1) + n) + _SPLIT_BYTES
+    if cache_k:
+        rows = -(-n // _CLUSTER)
+        end = _align16(end) + (12 * 32 * (cache_k + 1)
+                               + rows * (8 * cache_k + 4))
+    if tgt_points:
+        end = _align16(end) + 12 * tgt_points
+    return end + ntiles
+
+
+def cluster_plan(kernel: str, n: int, m: int,
+                 tile: int = 0) -> tuple[int, int, int]:
+    """What the host side of a cluster kernel ("resident_hbm", "large",
+    "banded") takes for an (N, M) element, as its `fit` in csrc/ works it
+    out: (slot buffers, two where they fit, else one, 0 where the state does
+    not fit; the option, the columns cached a row or for "banded" 1 where
+    the target points sit in shared memory; the shared-memory bytes, 0
+    where it does not fit). `cluster_config` asks the library itself."""
+    if kernel == "banded":
+        tries = [(BAND_CACHE_K, m * pts, n // tile, pts) for pts in (1, 0)]
+    else:
+        caches = (CACHE_K,) if kernel == "resident_hbm" else (CACHE_K, 0)
+        tries = [(k, 0, 0, k) for k in caches]
+    for cache_k, tgt_points, ntiles, option in tries:
+        for nbuf in (2, 1):
+            smem = _cluster_smem(n, m, nbuf, cache_k, tgt_points, ntiles)
+            if smem <= _CLUSTER_MAX_SMEM:
+                return nbuf, option, smem
+    return 0, 0, 0
+
+
+def cluster_config(kernel: str, n: int, m: int,
+                   tile: int = 0) -> tuple[int, int, int]:
+    """`cluster_plan` as the kernel library reports it
+    (reart_auction_<kernel>_config); builds the library."""
+    name = f"reart_auction_{kernel}_config"
+    out = (ctypes.c_int * 3)()
+    if getattr(_build.load_library(), name)(
+            n, m, tile, ctypes.cast(out, ctypes.c_void_p)):
+        raise ValueError(f"{name}: no configuration for ({n}, {m}, {tile})")
+    return tuple(out)
 
 
 def large_available(n: int, m: int, device=None) -> bool:
@@ -207,7 +267,7 @@ def large_available(n: int, m: int, device=None) -> bool:
     every size past 2048^2 goes sweep by sweep, as in the JAX package."""
     return (device is not None and torch.device(device).type == "cuda"
             and 0 < n <= m and n * m > RESIDENT_HBM_MAX_ELEMS
-            and _cluster_smem(n, m, 1) <= _CLUSTER_MAX_SMEM)
+            and cluster_plan("large", n, m)[0] > 0)
 
 
 def auction_solve_resident_hbm(benefit: torch.Tensor, price: torch.Tensor,
@@ -226,37 +286,35 @@ def auction_solve_resident_hbm(benefit: torch.Tensor, price: torch.Tensor,
     if not resident_hbm_available(n, m):
         raise ValueError(
             f"{name}: a {n}x{m} LAP is outside the streamed window (1024^2 < "
-            f"N*M <= 2048^2, M <= {_MAX_SMEM // 4}); "
-            f"ops.assignment.auction_lap picks the kernel by size")
+            f"N*M <= 2048^2, N <= M, its state in a block's shared memory: M "
+            f"up to ~14000); ops.assignment.auction_lap picks the kernel by "
+            f"size")
     return _launch_resident_hbm(benefit, price, eps_list, max_sweeps,
                                 return_stats)
 
 
 def _launch_resident_hbm(benefit, price, eps_list, max_sweeps: int,
-                         return_stats: bool = False):
+                         return_stats: bool = False, probe=None):
     """The streamed kernel's launch on checked CUDA inputs, at any N <= M
-    with 4 M bytes of prices in a block's shared memory; the wrapper above
-    gates it to its window."""
+    whose state fits a block's shared memory; the wrapper above gates it to
+    its window. `probe`, a zeroed (B, 2) int32 tensor, gets per element the
+    bids the cache answered and the rows read."""
     b, n, m = benefit.shape
     dev = benefit.device
     r2c = torch.empty((b, n), dtype=torch.int64, device=dev)
     price_out = torch.empty((b, m), dtype=torch.float32, device=dev)
-    stats = torch.zeros((b, len(eps_list), 2), dtype=torch.int32, device=dev)
-    # scratch the kernel initialises itself: bid keys (B, M) uint64, then
-    # owner map (B, M), assigned flags (B, N) and owned counts (B,) int32
-    scratch = torch.empty(b * (3 * m + n + 1), dtype=torch.int32, device=dev)
-    key = scratch.data_ptr()
-    c2r = key + 8 * b * m
-    assigned = c2r + 4 * b * m
-    owned = assigned + 4 * b * n
+    # written by the kernel for every element and phase
+    stats = torch.empty((b, len(eps_list), 2), dtype=torch.int32, device=dev)
     eps_arr = (ctypes.c_float * len(eps_list))(*eps_list)
     lib = _build.load_library()
     with torch.cuda.device(dev):
         err = lib.reart_auction_resident_hbm(
             benefit.data_ptr(), price.data_ptr(), b, n, m,
             ctypes.cast(eps_arr, ctypes.c_void_p), len(eps_list),
-            int(max_sweeps), r2c.data_ptr(), price_out.data_ptr(), key, c2r,
-            assigned, owned, stats.data_ptr(), _build.stream_of(benefit))
+            int(max_sweeps), r2c.data_ptr(),
+            price_out.data_ptr(), stats.data_ptr(),
+            None if probe is None else probe.data_ptr(),
+            _build.stream_of(benefit))
     _build.check_launch("auction_solve_resident_hbm", err)
     auction_solve_resident_hbm.launches += 1
     return (r2c, price_out, stats) if return_stats else (r2c, price_out)
@@ -267,12 +325,13 @@ auction_solve_resident_hbm.launches = 0
 
 def resident_hbm_available(n: int, m: int) -> bool:
     """Whether an (N, M) problem is in the streamed kernel's window: past
-    the resident kernel's, up to 2048^2, N <= M, and a block's shared memory
-    holding one copy of the prices (4 bytes per column). No alignment is
-    needed; the kernel loads 16 bytes at a time when M % 4 == 0."""
+    the resident kernel's, up to 2048^2, N <= M, and its state (the cluster
+    auction's with the split row pass and the cache) in a block's shared
+    memory with one slot buffer at least. No alignment is needed; the
+    kernel loads 16 bytes at a time when M % 4 == 0."""
     return (0 < n <= m
             and RESIDENT_MAX_ELEMS < n * m <= RESIDENT_HBM_MAX_ELEMS
-            and 4 * m <= _MAX_SMEM)
+            and cluster_plan("resident_hbm", n, m)[0] > 0)
 
 
 # ---------------------------------------------------------------------------
@@ -553,38 +612,69 @@ def auction_solve_banded(src: torch.Tensor, tgt: torch.Tensor,
     _build.require_cuda(name, src, tgt, price, dtype=torch.float32)
     b, n, _ = src.shape
     m = tgt.shape[1]
-    if 4 * m > _MAX_SMEM:
+    route = banded_route(n, m, tile)
+    if route is None:
         raise ValueError(f"{name}: M={m} is past a block's shared memory "
                          f"for the prices (M <= {_MAX_SMEM // 4})")
+    out = _launch_banded(src, tgt, price, eps_list, max_sweeps, w, tile,
+                         carry, route)
+    return out if return_stats else out[:2]
+
+
+def banded_route(n: int, m: int, tile: int) -> str | None:
+    """Which design of csrc/auction_banded.cu solves an (N, M) banded
+    problem on the card: "shared" (the cluster auction, its state in each
+    block's shared memory) where N <= M and that state fits with one slot
+    buffer and the target points in device memory, else "global" (the
+    global-state design, whose blocks hold only the prices), None past
+    that."""
+    if 0 < n <= m and n % tile == 0 and cluster_plan("banded", n, m,
+                                                      tile)[0] > 0:
+        return "shared"
+    return "global" if 4 * m <= _MAX_SMEM else None
+
+
+def _launch_banded(src, tgt, price, eps_list, max_sweeps: int, w: int,
+                   tile: int, carry: bool, route: str):
+    """The banded kernel's launch on checked, contiguous CUDA inputs by the
+    design `route` names -> (row_to_col, prices, stats)."""
+    b, n, _ = src.shape
+    m = tgt.shape[1]
     dev = src.device
     r2c_out = torch.empty((b, n), dtype=torch.int64, device=dev)
     price_out = torch.empty((b, m), dtype=torch.float32, device=dev)
     stats = torch.zeros((b, len(eps_list), 3), dtype=torch.int32, device=dev)
-    nt = n // tile
-    # scratch the kernel initialises itself: bid keys (B, M) uint64, then
-    # owner map (B, M), row map (B, N), tile flags (B, N / tile) and owned
-    # counts (B,) int32
-    scratch = torch.empty(b * (3 * m + n + nt + 1), dtype=torch.int32,
-                          device=dev)
-    key = scratch.data_ptr()
-    c2r = key + 8 * b * m
-    r2c = c2r + 4 * b * m
-    flags = r2c + 4 * b * n
-    owned = flags + 4 * b * nt
-    eps_arr = (ctypes.c_float * len(eps_list))(*eps_list)
+    eps_arr = ctypes.cast((ctypes.c_float * len(eps_list))(*eps_list),
+                          ctypes.c_void_p)
     lib = _build.load_library()
     with torch.cuda.device(dev):
-        err = lib.reart_auction_banded(
-            src.data_ptr(), tgt.data_ptr(), price.data_ptr(), b, n, m, int(w),
-            int(tile), ctypes.cast(eps_arr, ctypes.c_void_p), len(eps_list),
-            int(max_sweeps), int(bool(carry)), r2c_out.data_ptr(),
-            price_out.data_ptr(), key, c2r, r2c, flags, owned,
-            stats.data_ptr(), _build.stream_of(src))
-    _build.check_launch(name, err)
+        if route == "shared":
+            err = lib.reart_auction_banded(
+                src.data_ptr(), tgt.data_ptr(), price.data_ptr(), b, n, m,
+                int(w), int(tile), eps_arr, len(eps_list), int(max_sweeps),
+                int(bool(carry)), r2c_out.data_ptr(), price_out.data_ptr(),
+                stats.data_ptr(), _build.stream_of(src))
+        else:
+            nt = n // tile
+            # scratch the kernel initialises itself: bid keys (B, M)
+            # uint64, then owner map (B, M), row map (B, N), tile flags
+            # (B, N / tile) and owned counts (B,) int32
+            scratch = torch.empty(b * (3 * m + n + nt + 1),
+                                  dtype=torch.int32, device=dev)
+            key = scratch.data_ptr()
+            c2r = key + 8 * b * m
+            r2c = c2r + 4 * b * m
+            flags = r2c + 4 * b * n
+            owned = flags + 4 * b * nt
+            err = lib.reart_auction_banded_global(
+                src.data_ptr(), tgt.data_ptr(), price.data_ptr(), b, n, m,
+                int(w), int(tile), eps_arr, len(eps_list), int(max_sweeps),
+                int(bool(carry)), r2c_out.data_ptr(), price_out.data_ptr(),
+                key, c2r, r2c, flags, owned, stats.data_ptr(),
+                _build.stream_of(src))
+    _build.check_launch("auction_solve_banded", err)
     auction_solve_banded.launches += 1
-    if return_stats:
-        return r2c_out, price_out, stats
-    return r2c_out, price_out
+    return r2c_out, price_out, stats
 
 
 auction_solve_banded.launches = 0

@@ -262,9 +262,10 @@ def test_resident_hbm_plain_matches_pallas(case):
 
 
 def test_auction_lap_picks_its_solver_by_size(monkeypatch):
-    """Up to 1024^2 the resident kernel, up to 2048^2 the streamed one, the
-    sweeps past that; use_resident=False takes no one-launch kernel at all
-    and True asks for the resident one."""
+    """Up to 1024^2 the resident kernel, up to 2048^2 the streamed one
+    (where its cluster state fits a block's shared memory: (100, 10500),
+    not (32, 32800)), the sweeps past that; use_resident=False takes no
+    one-launch kernel at all and True asks for the resident one."""
     from reart_tpu_torch.ops import assignment
 
     assert cuda_auction.resident_available(1024, 1024)
@@ -290,9 +291,9 @@ def test_auction_lap_picks_its_solver_by_size(monkeypatch):
     kw = dict(num_scales=1, max_sweeps=2)
     auction_lap(torch.rand((1, 8, 8)), **kw)
     auction_lap(torch.rand((1, 8, 8)), use_resident=False, **kw)
-    auction_lap(torch.rand((1, 32, 32800)), **kw)
-    auction_lap(torch.rand((1, 32, 32800)), use_resident=False, **kw)
-    auction_lap(torch.rand((1, 32, 32800)), use_resident=True, **kw)
+    auction_lap(torch.rand((1, 100, 10500)), **kw)
+    auction_lap(torch.rand((1, 100, 10500)), use_resident=False, **kw)
+    auction_lap(torch.rand((1, 100, 10500)), use_resident=True, **kw)
     auction_lap(torch.zeros((1, 1, 2048 ** 2 + 1)), **kw)
     assert calls == ["resident", "sweeps", "streamed", "sweeps", "resident",
                      "sweeps"]
@@ -454,5 +455,5 @@ def test_auction_lap_takes_the_large_kernel_on_the_card(monkeypatch):
     auction_lap(past, **kw)
     auction_lap(past, use_resident=False, **kw)
     auction_lap(torch.rand((1, 8, 8)), **kw)
-    auction_lap(torch.rand((1, 32, 32800)), **kw)
+    auction_lap(torch.rand((1, 100, 10500)), **kw)
     assert calls == ["large", "sweeps", "sweeps", "resident", "streamed"]

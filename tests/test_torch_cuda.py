@@ -333,21 +333,49 @@ def _streamed_problem(kind, b, n, m):
     ("clouds", 2, 1100, 1100, 1),       # one sweep per phase
     ("duplicates", 2, 1024, 1104, 60),
     ("all_equal", 1, 1040, 1040, 20),
-    ("integers", 2, 1100, 1200, 40)])
+    ("integers", 2, 1100, 1200, 40),
+    ("clouds", 2, 1100, 1203, 100),     # M % 4 != 0
+    ("clouds", 20, 1100, 1100, 100),    # 160 blocks: two waves
+    ("clouds", 1, 1025, 1025, 100),     # the window's lower edge
+    ("clouds", 1, 80, 14248, 100)])     # the largest M whose state fits
 def test_streamed_auction_sizes_ties_and_bound(cuda, kind, b, n, m, sweeps):
+    """Row_to_col, prices and stats exact (the cluster design's sweeps are
+    the plain version's, bid for bid), cold and warm-started."""
     benefit = _streamed_problem(kind, b, n, m).contiguous()
     price = torch.zeros((b, m))
     got = cuda_auction.auction_solve_resident_hbm(
         benefit.to(cuda), price.to(cuda), EPS, sweeps, return_stats=True)
     ref = cuda_auction.auction_solve_resident_hbm_plain(
         benefit, price, EPS, sweeps, return_stats=True)
-    _same(got, ref, exact={0, 2})
+    _same(got, ref, exact={0, 1, 2})
     # warm-started from the prices it just found
     got2 = cuda_auction.auction_solve_resident_hbm(
         benefit.to(cuda), got[1], EPS, sweeps)
     ref2 = cuda_auction.auction_solve_resident_hbm_plain(
         benefit, ref[1], EPS, sweeps)
-    _same(got2, ref2, exact={0})
+    _same(got2, ref2, exact={0, 1})
+
+
+def test_streamed_auction_one_column_past_its_state(cuda):
+    """At N = 80 the cluster state fits up to M = 14248; one column past it
+    the wrapper raises and auction_lap sweeps, equal to use_resident=False
+    and to the plain version."""
+    from reart_tpu_torch.ops.assignment import auction_lap
+
+    assert cuda_auction.resident_hbm_available(80, 14248)
+    assert not cuda_auction.resident_hbm_available(80, 14249)
+    cost = -_streamed_problem("clouds", 1, 80, 14249).to(cuda)
+    with pytest.raises(ValueError):
+        cuda_auction.auction_solve_resident_hbm(
+            -cost, torch.zeros((1, 14249), device=cuda), EPS, 10)
+    kw = dict(eps_min=1e-4, num_scales=2, scale_factor=50.0, max_sweeps=100)
+    launches = (cuda_auction.auction_solve_resident_hbm.launches,
+                cuda_auction.row_top2.launches)
+    r2c, price = auction_lap(cost, return_price=True, **kw)
+    assert cuda_auction.auction_solve_resident_hbm.launches == launches[0]
+    assert cuda_auction.row_top2.launches > launches[1]
+    swept = auction_lap(cost, return_price=True, use_resident=False, **kw)
+    _same((r2c, price), tuple(t.cpu() for t in swept), exact={0, 1})
 
 
 def test_streamed_auction_unaligned_view_and_stream(cuda):
@@ -541,6 +569,55 @@ def test_banded_auction_bound_fallback_and_warm(cuda):
     _, _, st = _banded_same(cuda, src, tgt, p.cpu(), (1e-4, 1e-4), 2000, 256,
                             carry=True)
     assert int(st[:, 1, 0].max()) == 0
+
+
+# config: the cluster design's (slot buffers, target points in shared
+# memory), or "global"
+@pytest.mark.parametrize("b,n,w,carry,config", [
+    (1, 2048, 128, False, (2, 1)),         # the narrowest window
+    (1, 2048, 2048 - 128, False, (2, 1)),  # the widest below M
+    (3, 2048, 512, False, (2, 1)),
+    (1, 6144, 512, False, (1, 1)),         # one slot buffer
+    (1, 6656, 512, False, (2, 0)),         # the points in device memory
+    (1, 8192, 512, False, (1, 0)),         # both
+    (1, 8192, 512, True, (1, 0)),
+    (1, 12288, 256, False, "global"),      # past the cluster design's state
+])
+def test_banded_auction_edges_and_routes(cuda, b, n, w, carry, config):
+    """The banded solve at its window's edges, in each configuration of the
+    cluster design and past its shared memory, through the design and
+    configuration the wrapper picks, against the plain version on the card:
+    row_to_col, prices and stats equal."""
+    from reart_tpu_torch.ops.assignment import band_tile
+
+    tile = band_tile(n)
+    if config == "global":
+        assert cuda_auction.banded_route(n, n, tile) == "global"
+    else:
+        assert cuda_auction.banded_route(n, n, tile) == "shared"
+        got = cuda_auction.cluster_config("banded", n, n, tile)
+        assert got[:2] == config
+        assert got == cuda_auction.cluster_plan("banded", n, n, tile)
+    src, tgt = _sorted_clouds(b, n, 0.05, n + w)
+    eps = (1e-2, 1e-3, 1e-4) if carry else (5e-3, 1e-4)
+    _banded_same(cuda, src, tgt, torch.zeros(b, n), eps, 100, w,
+                 carry=carry, on_card=True)
+
+
+@pytest.mark.parametrize("kernel,n,ms,tile", [
+    ("resident_hbm", 80, range(14000, 14300), 0),
+    ("resident_hbm", 2048, [2048], 0),
+    ("large", 4096, range(8700, 12200, 7), 0),
+    ("banded", None, range(2048, 12289, 256), 256),
+])
+def test_cluster_plan_matches_the_library(cuda, kernel, n, ms, tile):
+    """The size gates' copy of the cluster kernels' shared-memory layout
+    (cuda_auction.cluster_plan) takes what the library takes, across the
+    gates' edges."""
+    for m in ms:
+        key = (kernel, m if n is None else n, m, tile)
+        assert cuda_auction.cluster_config(*key) == \
+            cuda_auction.cluster_plan(*key), key
 
 
 def test_banded_auction_large_and_views(cuda):
