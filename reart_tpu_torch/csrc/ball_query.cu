@@ -14,35 +14,72 @@
 // What bounds it on an H100: float32 ALU throughput. Every (centroid, point)
 // pair that is looked at costs 8 flops and a compare; the clouds and the
 // output are a few MB. How many pairs are looked at depends on the data: a
-// centroid stops at its nsample-th hit.
+// centroid stops at its nsample-th hit. In practice the time is set by a
+// chain of dependent steps per centroid (load, distance, rank, the next
+// step), not by either bound: SA1 at r=0.2, K=128 looks at ~3000 points a
+// centroid.
 //
-// Design: one warp per centroid. The TPU kernel's (TN, M) key tile with
-// nsample min-passes over it is not carried over: a warp that walks the
-// cloud in order, 32 points at a time, knows each hit's rank from a ballot
-// (the hits of lower lanes plus the running count) and writes it straight to
-// its slot, so the work is one pass that ends early. The eight warps of a
-// block share the cloud through shared-memory tiles; the block leaves the
-// loop when all of its warps are done. No limit on N. The batch and the
-// centroid blocks are folded into blockIdx.x.
+// Design: one warp per centroid, W centroids a block (the wrapper picks W,
+// ball_query_warps, so that the grid fills the card).
+//   * The block copies the whole cloud into shared memory once (packed xyz,
+//     48 KB for 4096 points; up to kWholeMax points), in 16-byte cp.async
+//     chunks lined up with the source, then one barrier. Past kWholeMax the
+//     cloud goes through in tiles of kTilePts points with a barrier pair a
+//     tile, the block leaving as soon as all its warps are done.
+//   * A step of the warp looks at 32 * V points (V = REART_BQ_V): lane l
+//     tests points base + 32 v + l for v < V, so its V distances are
+//     independent. Then V ballots rank the hits in point order, with one
+//     branch a step (skipped by a step without a hit): a hit's slot is the
+//     hits before it (the count so far plus the earlier ballots'
+//     popcounts) plus the popcount of the lower lanes' bits of its own
+//     ballot, and it is written straight to its slot. The
+//     warp stops at the step that reaches its nsample-th hit. The dependent
+//     chain is ~N / (32 V) steps long instead of N / 32.
+//   * The cloud in shared memory is padded to a whole step with +inf
+//     points, whose distance never passes the '<'.
+// The batch and the centroid blocks are folded into blockIdx.x.
 
 #include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "cp_async.cuh"
+#include "nn_split.cuh"
+
+#ifndef REART_BQ_V
+#error "REART_BQ_V (points a lane looks at per step): see ops/_build.py"
+#endif
 
 namespace {
 
-constexpr int kWarps = 8;     // centroids per block, one per warp
-constexpr int kTile = 1024;   // cloud points per shared-memory tile
+constexpr int kV = REART_BQ_V;
+constexpr int kStep = 32 * kV;       // points a warp looks at per step
+constexpr int kWholeMax = 16384;     // clouds held whole in shared memory
+constexpr int kTilePts = 4096;       // the tile of a larger cloud
+constexpr int kMaxWarps = 16;        // centroids a block, at most
+constexpr unsigned kFull = 0xffffffffu;
 
-__global__ void __launch_bounds__(kWarps * 32)
+static_assert(kV >= 1 && kV <= 16, "REART_BQ_V in [1, 16]");
+
+// floats of shared memory for a tile of `tile` points: padded to a whole
+// step, plus up to 3 floats that line the copy up with the source
+__host__ __device__ constexpr int smem_floats(int tile) {
+  return 3 * ((tile + kStep - 1) / kStep * kStep) + 4;
+}
+
+__global__ void __launch_bounds__(kMaxWarps * 32)
 ball_query_kernel(const float* __restrict__ xyz,
                   const float* __restrict__ new_xyz, int n, int s, int sblk,
-                  float r2, int nsample, long long* __restrict__ out) {
-  __shared__ float4 tile[kTile];
+                  int tile, float r2, int nsample,
+                  long long* __restrict__ out) {
+  extern __shared__ __align__(16) float s_raw[];
+  const int warps = blockDim.x >> 5;
   const int b = blockIdx.x / sblk;
   const int lane = threadIdx.x & 31;
-  const int c = (blockIdx.x % sblk) * kWarps + (threadIdx.x >> 5);
+  const int c = (blockIdx.x % sblk) * warps + (threadIdx.x >> 5);
   const bool live = c < s;
   const unsigned lower = (1u << lane) - 1u;
-  xyz += (size_t)b * n * 3;
+  const float* cloud = xyz + (size_t)b * n * 3;
 
   float cx = 0.f, cy = 0.f, cz = 0.f;
   long long* o = out;
@@ -53,45 +90,68 @@ ball_query_kernel(const float* __restrict__ xyz,
     cz = p[2];
     o = out + ((size_t)b * s + c) * nsample;
   }
-  int count = 0;   // hits written so far (warp-uniform)
+  int count = 0;   // hits so far (warp-uniform)
   int first = 0;   // the first hit (warp-uniform), 0 while there is none
   bool done = !live;
 
-  for (int t0 = 0; t0 < n; t0 += kTile) {
-    const int cnt = min(kTile, n - t0);
-    for (int k = threadIdx.x; k < cnt; k += blockDim.x) {
-      const float* p = xyz + 3 * (size_t)(t0 + k);
-      tile[k] = make_float4(p[0], p[1], p[2], 0.f);
-    }
+  for (int t0 = 0; t0 < n; t0 += tile) {
+    // a later tile: every warp is past the previous one (or all are done)
+    if (t0 > 0 && __syncthreads_and(done)) break;
+    const int cnt = min(tile, n - t0);
+    const float* src = cloud + 3 * (size_t)t0;
+    // pts[i] and src[i] share their offset within 16 bytes
+    const int mis =
+        static_cast<int>((reinterpret_cast<uintptr_t>(src) >> 2) & 3);
+    float* pts = s_raw + mis;
+    const int nf = 3 * cnt;
+    const int head = min(nf, (4 - mis) & 3);
+    const int chunks = (nf - head) / 4;
+    for (int e = threadIdx.x; e < chunks; e += blockDim.x)
+      cp_async::copy16(pts + head + 4 * e, src + head + 4 * e);
+    for (int e = threadIdx.x; e < head; e += blockDim.x)
+      cp_async::copy4(pts + e, src + e);
+    for (int e = head + 4 * chunks + threadIdx.x; e < nf; e += blockDim.x)
+      cp_async::copy4(pts + e, src + e);
+    const int padded = 3 * ((cnt + kStep - 1) / kStep * kStep);
+    for (int e = nf + threadIdx.x; e < padded; e += blockDim.x)
+      pts[e] = INFINITY;
+    cp_async::wait_all();
     __syncthreads();
+
     if (!done) {
-      for (int k0 = 0; k0 < cnt; k0 += 32) {
-        const int k = k0 + lane;
-        bool hit = false;
-        if (k < cnt) {
-          const float4 p = tile[k];
-          const float dx = cx - p.x;
-          const float dy = cy - p.y;
-          const float dz = cz - p.z;
-          float d = dx * dx + dy * dy;
-          d = d + dz * dz;
-          hit = d < r2;
+      const float* pl = pts + 3 * lane;  // this lane's first point
+      for (int k0 = 0; k0 < cnt; k0 += kStep, pl += 3 * kStep) {
+        bool hit[kV];
+#pragma unroll
+        for (int v = 0; v < kV; ++v) {
+          const float* p = pl + 96 * v;
+          hit[v] = nn_split::sqdist(cx, cy, cz, p[0], p[1], p[2]) < r2;
         }
-        const unsigned ballot = __ballot_sync(0xffffffffu, hit);
-        if (ballot) {
-          if (count == 0) first = t0 + k0 + __ffs(ballot) - 1;
-          const int slot = count + __popc(ballot & lower);
-          if (hit && slot < nsample) o[slot] = t0 + k;
-          count += __popc(ballot);
-          if (count >= nsample) {
-            done = true;
-            break;
+        unsigned bal[kV], any = 0;
+#pragma unroll
+        for (int v = 0; v < kV; ++v) {
+          bal[v] = __ballot_sync(kFull, hit[v]);
+          any |= bal[v];
+        }
+        if (any) {  // warp-uniform: a step without a hit costs no more
+          if (count == 0) {  // the first hit, once
+#pragma unroll
+            for (int v = kV - 1; v >= 0; --v)
+              if (bal[v]) first = t0 + k0 + 32 * v + __ffs(bal[v]) - 1;
           }
+#pragma unroll
+          for (int v = 0; v < kV; ++v) {
+            const int slot = count + __popc(bal[v] & lower);
+            if (hit[v] && slot < nsample) o[slot] = t0 + k0 + 32 * v + lane;
+            count += __popc(bal[v]);
+          }
+        }
+        if (count >= nsample) {
+          done = true;
+          break;
         }
       }
     }
-    // a barrier as well: the tile is free to be overwritten after it
-    if (__syncthreads_and(done)) break;
   }
   if (live) {
     for (int k = min(count, nsample) + lane; k < nsample; k += 32)
@@ -101,12 +161,24 @@ ball_query_kernel(const float* __restrict__ xyz,
 
 }  // namespace
 
+// One kernel launch per call; `warps` centroids a block, in [1, 16].
 extern "C" int reart_ball_query(const float* xyz, const float* new_xyz,
                                 int batch, int n, int s, float r2,
-                                int nsample, long long* out, void* stream) {
-  const int sblk = (s + kWarps - 1) / kWarps;
-  ball_query_kernel<<<(unsigned)batch * sblk, kWarps * 32, 0,
+                                int nsample, int warps, long long* out,
+                                void* stream) {
+  if (warps < 1 || warps > kMaxWarps)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int tile = n <= kWholeMax ? n : kTilePts;
+  const size_t smem = sizeof(float) * smem_floats(tile);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        ball_query_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int sblk = (s + warps - 1) / warps;
+  ball_query_kernel<<<(unsigned)batch * sblk, warps * 32, smem,
                       static_cast<cudaStream_t>(stream)>>>(
-      xyz, new_xyz, n, s, sblk, r2, nsample, out);
+      xyz, new_xyz, n, s, sblk, tile, r2, nsample, out);
   return static_cast<int>(cudaGetLastError());
 }

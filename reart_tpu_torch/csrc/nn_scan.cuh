@@ -1,5 +1,5 @@
-// The scan shared by nn_topk.cu, nn1_coords.cu and nn_bidir.cu: one query
-// per thread against a whole reference cloud.
+// The scan shared by nn1_coords.cu and nn_bidir.cu: one query per thread
+// against a whole reference cloud.
 //
 // The reference cloud goes through shared memory in tiles, walked in
 // ascending index. Each thread keeps a sorted running top-K in registers (K

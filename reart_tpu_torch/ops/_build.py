@@ -33,12 +33,17 @@ NVCC_FLAGS = (
     "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# The auction kernels' option sizes (csrc/auction_cluster.cuh), passed as
-# -D flags and read by ops/cuda_auction's size gates: the columns the
-# streamed and large kernels cache a row, the banded kernel's (0: none),
-# and the bidding rows at or below which the dense kernels run the rest of
-# a phase on one block. `build(defines=...)` overrides them for a variant.
-DEFINES = {"REART_CACHE_K": 4, "REART_BAND_CACHE_K": 0, "REART_TAIL_ROWS": 32}
+# The kernels' option sizes, passed as -D flags. The auction kernels'
+# (csrc/auction_cluster.cuh), read by ops/cuda_auction's size gates too: the
+# columns the streamed and large kernels cache a row, the banded kernel's
+# (0: none), and the bidding rows at or below which the dense kernels run
+# the rest of a phase on one block. The neighbour kernels': the queries a
+# thread of nn_topk carries where the grid is full without slicing
+# (csrc/nn_topk.cu, read by ops/cuda_nn.nn_topk_plan), and the points a lane
+# of ball_query looks at per step (csrc/ball_query.cu). `build(defines=...)`
+# overrides them for a variant.
+DEFINES = {"REART_CACHE_K": 4, "REART_BAND_CACHE_K": 0, "REART_TAIL_ROWS": 32,
+           "REART_NN_QPT": 4, "REART_BQ_V": 4}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -69,8 +74,8 @@ SIGNATURES = {
     "reart_auction_resident_hbm_config": (_I, _I, _I, _P),
     "reart_auction_large_config": (_I, _I, _I, _P),
     "reart_auction_banded_config": (_I, _I, _I, _P),
-    # query, ref, B, N, M, ref_div, k, out_d, out_i, stream
-    "reart_nn_topk": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
+    # query, ref, B, N, M, k, queries a thread, slices, out_d, out_i, stream
+    "reart_nn_topk": (_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
     # query, ref, B, N, M, out_d, out_i, out_c, stream
     "reart_nn1_coords": (_P, _P, _I, _I, _I, _P, _P, _P, _P),
     # src, tgt, B, N, M, fd, fi, bd, bi, stream
@@ -79,8 +84,8 @@ SIGNATURES = {
     "reart_row_top2": (_P, _P, _I, _I, _I, _P, _P, _P, _P),
     # bid, best_j, B, N, M, col_bid, col_winner, stream
     "reart_col_winner_max": (_P, _P, _I, _I, _I, _P, _P, _P),
-    # xyz, new_xyz, B, N, S, r2, nsample, out, stream
-    "reart_ball_query": (_P, _P, _I, _I, _I, _F, _I, _P, _P),
+    # xyz, new_xyz, B, N, S, r2, nsample, warps a block, out, stream
+    "reart_ball_query": (_P, _P, _I, _I, _I, _F, _I, _I, _P, _P),
     # src, tgt, price_in, B, N, M, w, tile, eps (host float*), n_eps,
     # max_sweeps, carry, row_to_col, price_out, stats, stream
     "reart_auction_banded": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _I,

@@ -18,9 +18,10 @@ Counterpart of reart_tpu/ops/pallas_nn.py:
     order (Pallas `ball_query_pallas`): the grouping of the PointNet++
     set-abstraction layers.
 
-The first two split their scans across threads and blocks and merge the
-partial winners in (distance, index) order (csrc/nn_split.cuh); the three
-scans of the second group share csrc/nn_scan.cuh.
+`nn1_bidir_coords`, `blend3` and `nn_topk` split their scans across
+threads and blocks and merge the partial winners in (distance, index) order
+(csrc/nn_split.cuh); `nn1_coords` and `nn_bidir` share the one-query-per-
+thread scan of csrc/nn_scan.cuh.
 
 Each wrapper takes the plain version for a CPU tensor and launches its
 kernel for a CUDA tensor (or raises); `<wrapper>.launches` counts kernel
@@ -48,11 +49,24 @@ BLEND3_MAX_SLICES = 16
 BLEND3_MIN_SLICE = 64
 # blend3's threshold pass reads every BLEND3_SAMPLE-th anchor of a slice
 BLEND3_SAMPLE = 4
-# nn_topk, nn1_coords and nn_bidir fold the batch into gridDim.x
+# nn_topk, nn1_coords, nn_bidir and ball_query fold the batch into gridDim.x
 MAX_BLOCKS = 2 ** 31 - 1
 # largest k of nn_topk: the kernel keeps its running top-k in registers, in
 # instances for k = 1, 3 and 8 (the largest k the package asks for)
 MAX_K = 8
+# nn_topk: a block of NN_THREADS threads, each with 1 or NN_QPT queries,
+# cuts the reference into S slices (S a power of two up to NN_MAX_SLICES)
+# of at least NN_MIN_SLICE points, while the grid holds fewer than
+# NN_BLOCKS_PER_SM blocks an SM (for k = 1, k > 1); see nn_topk_plan
+NN_THREADS = 128
+NN_QPT = _build.DEFINES["REART_NN_QPT"]
+NN_MAX_SLICES = 16
+NN_MIN_SLICE = 32
+NN_BLOCKS_PER_SM = (8, 3)
+# ball_query: a warp per centroid, BQ_MAX_WARPS centroids a block, fewer
+# (down to BQ_MIN_WARPS) where the grid would not fill the card
+BQ_MAX_WARPS = 16
+BQ_MIN_WARPS = 4
 # float32 entries of one distance-matrix chunk of the plain versions
 _PLAIN_CHUNK = 1 << 26
 
@@ -289,6 +303,35 @@ def nn_topk_plain(query: torch.Tensor, ref: torch.Tensor, k: int,
     return torch.cat(ds), torch.cat(idxs)
 
 
+def nn_topk_blocks(b: int, n: int, qpt: int, slices: int) -> int:
+    """Blocks of nn_topk's kernel for b clouds of n queries."""
+    return b * -(-n * slices // (NN_THREADS * qpt))
+
+
+def nn_topk_plan(b: int, n: int, m: int, k: int, sms: int,
+                 qpt: int = NN_QPT) -> tuple[int, int]:
+    """(queries a thread, slices S) of nn_topk's kernel for b reference
+    clouds of m points, each against n queries (the clouds that share a
+    reference folded into one), k neighbours, on a card of `sms` SMs, for a
+    library built with `qpt` as REART_NN_QPT. k = 1 takes qpt queries a
+    thread where a cloud fills a block with them (one shared-memory load of
+    a point then serves qpt pairs), else 1; k > 1 takes 1 (the inserts into
+    qpt lists a thread serialise). S is doubled from 1 while the grid holds
+    fewer than NN_BLOCKS_PER_SM[k > 1] blocks an SM and each slice keeps
+    NN_MIN_SLICE points or more, up to NN_MAX_SLICES: k > 1 stops earlier,
+    since each slice keeps a top-k of its own and shorter slices insert
+    more. On 132 SMs: the seg-refinement table (9, 81920, 4096), k=1, takes
+    (4, 1); (9, 4096, 4096) (4, 16) at k=1 and (1, 2) at k=3; IK's
+    (1, 6, 4096) (1, 16). The choice changes no bit of the result."""
+    qpt = qpt if k == 1 and n >= qpt * NN_THREADS else 1
+    per_sm = NN_BLOCKS_PER_SM[k > 1]
+    s = 1
+    while (s < NN_MAX_SLICES and m >= 2 * s * NN_MIN_SLICE
+           and nn_topk_blocks(b, n, qpt, s) < per_sm * sms):
+        s *= 2
+    return qpt, s
+
+
 def nn_topk(query: torch.Tensor, ref: torch.Tensor, k: int):
     """Batched k-NN: query (..., N, 3), ref (..., M, 3) -> (sqdist
     (..., N, k) ascending, idx (..., N, k) int64). The reference's batch dims
@@ -305,15 +348,19 @@ def nn_topk(query: torch.Tensor, ref: torch.Tensor, k: int):
     else:
         q, r = q.contiguous(), r.contiguous()
         _build.require_cuda(name, q, r, dtype=torch.float32)
-        if b * (-(-n // 32)) > MAX_BLOCKS:
-            raise ValueError(f"{name}: batch {b} x {n} queries is past the "
-                             f"grid limit")
+        # the ref_div clouds that read one reference are one cloud of
+        # ref_div * N queries to the kernel
+        bf, nf = b // ref_div, n * ref_div
+        qpt, slices = nn_topk_plan(bf, nf, m, k, _build.sm_count(q.device))
+        if nn_topk_blocks(bf, nf, qpt, slices) > MAX_BLOCKS or nf > MAX_BLOCKS:
+            raise ValueError(f"{name}: batch {b} x {n} queries x {m} points "
+                             f"is past the grid limit")
         d = torch.empty((b, n, k), dtype=torch.float32, device=q.device)
         i = torch.empty((b, n, k), dtype=torch.int64, device=q.device)
         lib = _build.load_library()
         with torch.cuda.device(q.device):
-            err = lib.reart_nn_topk(q.data_ptr(), r.data_ptr(), b, n, m,
-                                    ref_div, k, d.data_ptr(), i.data_ptr(),
+            err = lib.reart_nn_topk(q.data_ptr(), r.data_ptr(), bf, nf, m, k,
+                                    qpt, slices, d.data_ptr(), i.data_ptr(),
                                     _build.stream_of(q))
         _build.check_launch(name, err)
         nn_topk.launches += 1
@@ -452,6 +499,17 @@ def ball_query_plain(radius: float, nsample: int, xyz: torch.Tensor,
     return torch.cat(outs)
 
 
+def ball_query_warps(b: int, s: int, sms: int) -> int:
+    """Centroids (warps) a block of ball_query's kernel for b clouds of s
+    centroids on a card of `sms` SMs: the W in [BQ_MIN_WARPS, BQ_MAX_WARPS]
+    that puts the fewest warps on the busiest SM, ceil(blocks / sms) * W,
+    the larger W on a tie (fewer copies of the cloud). On 132 SMs: SA1 of
+    the flow clouds, (9, 512), takes 12 (387 blocks, 3 an SM); SA1 of a
+    training batch, (8, 512), 16; SA2, (9, 128) 10 and (8, 128) 8."""
+    return min(range(BQ_MAX_WARPS, BQ_MIN_WARPS - 1, -1),
+               key=lambda w: -(-b * -(-s // w) // sms) * w)
+
+
 def ball_query(radius: float, nsample: int, xyz: torch.Tensor,
                new_xyz: torch.Tensor) -> torch.Tensor:
     """First `nsample` in-radius points of each centroid, in point order;
@@ -467,14 +525,15 @@ def ball_query(radius: float, nsample: int, xyz: torch.Tensor,
     xyz, new_xyz = xyz.contiguous(), new_xyz.contiguous()
     _build.require_cuda(name, xyz, new_xyz, dtype=torch.float32)
     b, n, s = xyz.shape[0], xyz.shape[1], new_xyz.shape[1]
-    if b * (-(-s // 8)) > MAX_BLOCKS:
+    warps = ball_query_warps(b, s, _build.sm_count(xyz.device))
+    if b * (-(-s // warps)) > MAX_BLOCKS:
         raise ValueError(f"{name}: batch {b} x {s} centroids is past the "
                          f"grid limit")
     out = torch.empty((b, s, nsample), dtype=torch.int64, device=xyz.device)
     lib = _build.load_library()
     with torch.cuda.device(xyz.device):
         err = lib.reart_ball_query(xyz.data_ptr(), new_xyz.data_ptr(), b, n,
-                                   s, radius_sq(radius), nsample,
+                                   s, radius_sq(radius), nsample, warps,
                                    out.data_ptr(), _build.stream_of(xyz))
     _build.check_launch(name, err)
     ball_query.launches += 1

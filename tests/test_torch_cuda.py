@@ -693,7 +693,7 @@ def test_chamfer_backward_is_bit_identical_across_calls(cuda):
 def test_nn_topk_ragged_and_m_below_k(cuda, k, b, n, m):
     q, r = _randn(b * n + k, b, n, 3), _randn(m + k, b, m, 3)
     got = cuda_nn.nn_topk(q.to(cuda), r.to(cuda), k)
-    _same(got, cuda_nn.nn_topk_plain(q, r, k), exact={1})
+    _same(got, cuda_nn.nn_topk_plain(q, r, k), exact={0, 1})
     if m < k:  # the missing slots
         assert torch.isinf(got[0][..., m:]).all()
         assert int(got[1][..., m:].abs().max()) == 0
@@ -704,7 +704,7 @@ def test_nn_topk_duplicates_and_all_ties(cuda, k):
     base = _randn(0, 1, 4, 3)
     q, r = base.repeat(1, 50, 1), base.repeat(1, 300, 1)
     got = cuda_nn.nn_topk(q.to(cuda), r.to(cuda), k)
-    _same(got, cuda_nn.nn_topk_plain(q, r, k), exact={1})
+    _same(got, cuda_nn.nn_topk_plain(q, r, k), exact={0, 1})
     zero = torch.zeros((1, 70, 3))
     d, i = cuda_nn.nn_topk(zero.to(cuda), zero.to(cuda), k)
     assert torch.equal(i.cpu(), torch.arange(k).expand(1, 70, k))
@@ -717,17 +717,17 @@ def test_nn_topk_broadcast_ref_is_read_in_place(cuda):
     full = r.expand(3, 4, 130, 3).reshape(12, 130, 3)
     ref = cuda_nn.nn_topk_plain(q.reshape(12, 65, 3), full, 3)
     got = cuda_nn.nn_topk(q.to(cuda), r.to(cuda), 3)
-    _same([g.reshape(12, 65, 3) for g in got], ref, exact={1})
+    _same([g.reshape(12, 65, 3) for g in got], ref, exact={0, 1})
     got1 = cuda_nn.nn_topk(q.to(cuda), r[0, 0].to(cuda), 1)
     ref1 = cuda_nn.nn_topk_plain(q.reshape(12, 65, 3), r[0], 1, ref_div=12)
-    _same([g.reshape(12, 65, 1) for g in got1], ref1, exact={1})
+    _same([g.reshape(12, 65, 1) for g in got1], ref1, exact={0, 1})
 
 
 def test_batch_past_65535(cuda):
     b = 70000
     q, r = _randn(3, b, 5, 3), _randn(4, b, 7, 3)
     _same(cuda_nn.nn_topk(q.to(cuda), r.to(cuda), 3),
-          cuda_nn.nn_topk_plain(q, r, 3), exact={1})
+          cuda_nn.nn_topk_plain(q, r, 3), exact={0, 1})
     _same(cuda_nn.nn1_coords(q.to(cuda), r.to(cuda)),
           cuda_nn.nn1_coords_plain(q, r), exact={1, 2})
     _same(cuda_nn.nn_bidir(q.to(cuda), r.to(cuda)),
@@ -935,7 +935,8 @@ def test_ball_query_edges_and_duplicates(cuda):
 
 def test_ball_query_view_stream_and_large_grid(cuda):
     """A cloud that is a strided view (the wrapper copies it), a launch on
-    a side stream, and B x S / 8 blocks past the 65,535 of one grid row."""
+    a side stream, and B x S centroids in blocks of 16 or fewer: past the
+    65,535 blocks of one grid row."""
     rng = np.random.RandomState(1)
     wide = torch.from_numpy(rng.rand(2, 300, 4).astype(np.float32))
     xyz, new_xyz = wide[..., 1:], wide[:, :40, 1:]
@@ -948,8 +949,8 @@ def test_ball_query_view_stream_and_large_grid(cuda):
         got = cuda_nn.ball_query(0.2, 16, on_side, new_xyz.to(cuda))
     side.synchronize()
     assert torch.equal(got.cpu(), ref)
-    many = torch.from_numpy(rng.rand(1100, 64, 3).astype(np.float32))
-    cents = torch.from_numpy(rng.rand(1100, 512, 3).astype(np.float32))
+    many = torch.from_numpy(rng.rand(2100, 64, 3).astype(np.float32))
+    cents = torch.from_numpy(rng.rand(2100, 512, 3).astype(np.float32))
     before = cuda_nn.ball_query.launches
     _ball_same(cuda, 0.3, 8, many, cents)
     assert cuda_nn.ball_query.launches == before + 1
@@ -1009,3 +1010,127 @@ def test_corr_training_steps_on_card(cuda):
     assert cuda_nn.nn_topk.launches - counts[cuda_nn.nn_topk] == 6
     assert float(model.head.running_var.min()) != 1.0
     assert next(model.parameters()).device.type == "cuda"
+
+
+# ---------------------------------------------------------------------------
+# nn_topk and ball_query: every route their launchers can take
+# ---------------------------------------------------------------------------
+
+def _topk_launch(q, r, k, qpt, slices, ref_div=1):
+    """nn_topk's C entry point with the queries a thread and the slice count
+    forced; q (B, N, 3), r (B // ref_div, M, 3) on the card."""
+    from reart_tpu_torch.ops import _build
+
+    b, n, m = q.shape[0], q.shape[1], r.shape[1]
+    d = torch.empty((b, n, k), dtype=torch.float32, device=q.device)
+    i = torch.empty((b, n, k), dtype=torch.int64, device=q.device)
+    _build.check_launch("nn_topk", _build.load_library().reart_nn_topk(
+        q.data_ptr(), r.data_ptr(), b // ref_div, n * ref_div, m, k, qpt,
+        slices, d.data_ptr(), i.data_ptr(), _build.stream_of(q)))
+    return d, i
+
+
+def _topk_case(kind):
+    rng = np.random.RandomState(len(kind))
+    q = rng.randn(3, 333, 3).astype(np.float32)
+    r = rng.randn(3, 1500, 3).astype(np.float32)
+    if kind == "ties":  # 43 points repeated: ties across slices and subtiles
+        r = np.tile(r[:, :43], (1, 35, 1))[:, :1500]
+        q[:, :40] = r[:, 3:43]
+    elif kind == "all_equal":
+        q, r = np.zeros_like(q), np.zeros_like(r)
+    elif kind == "ragged":  # M no multiple of 32 or of any slice count
+        r = r[:, :1001]
+    elif kind == "m_below_k":
+        r = r[:, :5]
+    return torch.from_numpy(q), torch.from_numpy(r)
+
+
+@pytest.mark.parametrize("slices", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("qpt", [1, cuda_nn.NN_QPT])
+@pytest.mark.parametrize("k", [1, 3, 8])
+@pytest.mark.parametrize("kind", ["random", "ties", "all_equal", "ragged",
+                                  "m_below_k"])
+def test_nn_topk_every_slice_count_and_queries_a_thread(cuda, kind, k, qpt,
+                                                        slices):
+    q, r = _topk_case(kind)
+    got = _topk_launch(q.to(cuda), r.to(cuda), k, qpt, slices)
+    _same(got, cuda_nn.nn_topk_plain(q, r, k), exact={0, 1})
+
+
+@pytest.mark.parametrize("slices", [1, 4, 16])
+def test_nn_topk_shared_and_unaligned_reference(cuda, slices):
+    # 5 query clouds a reference (folded as one cloud of 5 N queries), and
+    # a reference whose first point is 4 bytes past a 16-byte boundary
+    q = _randn(1, 10, 77, 3)
+    flat = _randn(2, 1 + 2 * 999 * 3)
+    r = flat[1:].reshape(2, 999, 3)
+    unaligned = flat.to(cuda)[1:].view(2, 999, 3)
+    assert unaligned.data_ptr() % 16 != 0 and unaligned.is_contiguous()
+    for rr in (r.to(cuda), unaligned):
+        for k in (1, 3):
+            got = _topk_launch(q.to(cuda), rr, k, 1, slices, ref_div=5)
+            _same(got, cuda_nn.nn_topk_plain(q, r, k, ref_div=5),
+                  exact={0, 1})
+
+
+@pytest.mark.parametrize("label,qs,rs,k", [
+    ("IK label transfer", (6, 3), (4096, 3), 1),
+    ("smoothing neighbourhood", (4096, 3), (4096, 3), 8),
+    ("table", (3, 20, 4096, 3), (3, 1, 4096, 3), 1),
+    ("backbone SA2 level", (8, 512, 3), (8, 128, 3), 3),
+    ("backbone SA1 level", (8, 1024, 3), (8, 512, 3), 3)])
+def test_nn_topk_path_shapes_exact(cuda, label, qs, rs, k):
+    q, r = _randn(len(label), *qs), _randn(len(label) + 1, *rs)
+    if label == "smoothing neighbourhood":
+        q = r
+    got = cuda_nn.nn_topk(q.to(cuda), r.to(cuda), k)
+    qf, rf, ref_div, batch = cuda_nn._flatten_query_ref("nn_topk", q, r)
+    ref = [x.reshape(batch + x.shape[-2:])
+           for x in cuda_nn.nn_topk_plain(qf, rf, k, ref_div)]
+    _same(got, ref, exact={0, 1})
+
+
+def _ball_launch(radius, k, xyz, new_xyz, warps):
+    from reart_tpu_torch.ops import _build
+
+    b, n, s = xyz.shape[0], xyz.shape[1], new_xyz.shape[1]
+    out = torch.empty((b, s, k), dtype=torch.int64, device=xyz.device)
+    _build.check_launch("ball_query", _build.load_library().reart_ball_query(
+        xyz.data_ptr(), new_xyz.data_ptr(), b, n, s,
+        cuda_nn.radius_sq(radius), k, warps, out.data_ptr(),
+        _build.stream_of(xyz)))
+    return out
+
+
+@pytest.mark.parametrize("warps", [1, 4, 8, 16])
+@pytest.mark.parametrize("b,n,s,radius,k", [
+    (2, 601, 97, 0.2, 128),      # whole cloud, ragged
+    (1, 16384, 40, 0.05, 128),   # the largest cloud held whole
+    (1, 16385, 40, 0.05, 128),   # one past it: tiles of 4096
+    (2, 20000, 33, 0.9, 64),     # tiles, most centroids done in the first
+    (3, 70, 5, 10.0, 128)])      # more slots than points
+def test_ball_query_every_block_and_both_routes(cuda, warps, b, n, s, radius,
+                                                k):
+    rng = np.random.RandomState(n + s)
+    xyz = torch.from_numpy(rng.rand(b, n, 3).astype(np.float32))
+    new_xyz = xyz[:, rng.permutation(n)[:s]].contiguous()
+    got = _ball_launch(radius, k, xyz.to(cuda), new_xyz.to(cuda), warps)
+    assert torch.equal(got.cpu(), cuda_nn.ball_query_plain(radius, k, xyz,
+                                                           new_xyz))
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_ball_query_unaligned_cloud(cuda, offset):
+    # a cloud 4, 8 or 12 bytes past a 16-byte boundary: the copy's head and
+    # tail go 4 bytes at a time
+    rng = np.random.RandomState(offset)
+    flat = torch.from_numpy(rng.rand(offset + 2 * 1001 * 3).astype(
+        np.float32)).to(cuda)
+    xyz = flat[offset:].view(2, 1001, 3)
+    assert xyz.data_ptr() % 16 == 4 * offset % 16
+    new_xyz = xyz[:, ::13].contiguous()
+    got = cuda_nn.ball_query(0.3, 32, xyz, new_xyz)
+    assert torch.equal(got.cpu(), cuda_nn.ball_query_plain(
+        0.3, 32, xyz.cpu(), new_xyz.cpu()))
+
