@@ -182,11 +182,6 @@ BACKBONE_TOL = dict(rtol=1e-3, atol=5e-4)
 # the healthy bar of a 3-part toy (RI, flow EPE in cm, tree edit distance)
 HEALTHY = {"seg_ri": (">", 0.9), "flow_epe": ("<", 2.0), "ted": ("==", 0.0)}
 
-# published peaks of one H100 SXM at its full 700 W: float32 outside the
-# tensor cores, and device memory
-PEAK_F32_FLOPS = 67e12
-PEAK_BYTES = 3.35e12
-
 KERNELS = {
     "nn1_bidir_coords": ("reart_tpu_torch/csrc/nn1_bidir_coords.cu",
                          "reart_tpu/ops/pallas_nn.py:503"),
@@ -282,26 +277,14 @@ def graph_ms(fn, launches=100, reps=5):
     return float(np.median(times))
 
 
-def bound_of(flops, nbytes):
-    """The least time (ms) the card could take: the larger of `flops` over
-    the float32 peak and `nbytes` over the memory rate."""
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
-    return dict(bound_ms=1e3 * max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes")
+# the bounds (bound_ms, bound_by) are reart_tpu_torch.bench_nn's bound and
+# bound_of, from the H100's peaks there
 
-
-def bound(flops, tensors):
-    """`bound_of` with the bytes of `tensors`: each input read once, each
-    output written once."""
-    return bound_of(flops, sum(t.numel() * t.element_size()
-                               for t in tensors))
-
-
-# one squared distance: 3 subtractions, 3 products, 2 additions
-PAIR_FLOPS = 8
 # nn_topk's k=1 instruction floor: the 8 float operations of a pair and the
 # one fminf of its running minimum, at the H100 SXM's boost clock
 INSTR_PER_PAIR = 9
+# nn_bidir's: the 8 float operations and one fminf for each direction
+BIDIR_INSTR_PER_PAIR = 10
 BOOST_HZ = 1.98e9
 
 
@@ -436,6 +419,7 @@ def chamfer_backward_check(dev, randn, pred, obs):
 
 
 def kernel_phase(dev):
+    from reart_tpu_torch.bench_nn import PAIR_FLOPS, bound
     from reart_tpu_torch.ops import cuda_auction, cuda_fps, cuda_nn
     from reart_tpu_torch.ops.distance import pairwise_sqdist
 
@@ -702,7 +686,8 @@ def kernel_phase(dev):
 
 def new_kernel_phase(dev, gen, src, pcs, stats):
     """nn_topk, nn1_coords and nn_bidir against their plain versions."""
-    from reart_tpu_torch.ops import cuda_nn
+    from reart_tpu_torch.bench_nn import PAIR_FLOPS, bound
+    from reart_tpu_torch.ops import _build, cuda_nn
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev)
@@ -806,55 +791,122 @@ def new_kernel_phase(dev, gen, src, pcs, stats):
             f"{b['bound_ms']:.6f} ms by {b['bound_by']}")
 
     # row 4: 1-NN with coords. (P^2, 20, 20): the anchor pairs of the graph
-    # stage's spatial cost; a cloud-scale batch beside it
-    anchors = randn(20, 20, 3)
-    pair_q = anchors[:, None].expand(20, 20, 20, 3).reshape(400, 20, 3)
-    pair_r = anchors[None].expand(20, 20, 20, 3).reshape(400, 20, 3)
-    pair_q, pair_r = pair_q.contiguous(), pair_r.contiguous()
+    # stage's spatial cost at P = 20 parts and at the smaller P of later
+    # merge steps (the packed route); clouds past 32 points beside them
+    # (nn_topk's k = 1 route)
+    def part_pairs(p):
+        anchors = randn(p, 20, 3)
+        q = anchors[:, None].expand(p, p, 20, 3).reshape(p * p, 20, 3)
+        r = anchors[None].expand(p, p, 20, 3).reshape(p * p, 20, 3)
+        return q.contiguous(), r.contiguous()
+
+    pair_q, pair_r = part_pairs(20)
+    # the P of the full-width runs' graph stages
+    paths = {p: part_pairs(p) for p in (6, 5, 4)}
+    small = randn(5, 31, 3)
     cases = [("(9, 4096, 4096)", src, pcs),
              ("(400, 20, 20)", pair_q, pair_r),
+             *((f"({p * p}, 20, 20)", *paths[p]) for p in (6, 5, 4)),
+             ("(49, 20, 20)", *part_pairs(7)),
+             ("(4, 20, 20)", *part_pairs(2)),
+             ("B=1 (1, 20, 20)", *part_pairs(1)),
+             ("N < M (5, 3, 31)", small[:, :3], small),
+             ("N > M (5, 31, 3)", small, small[:, :3].contiguous()),
              ("ragged (2, 300, 1500)", randn(2, 300, 3), randn(2, 1500, 3)),
+             ("N > M ragged (2, 1500, 300)", randn(2, 1500, 3),
+              randn(2, 300, 3)),
              ("duplicates (1, 200, 1200)", tie_q, tie_r),
-             ("all ties (2, 70, 70)", zero, zero)]
+             ("duplicates (3, 20, 20)", base.repeat(3, 5, 1),
+              base.repeat(3, 5, 1)),
+             ("all ties (2, 70, 70)", zero, zero),
+             ("all ties (2, 20, 20)", zero[:, :20], zero[:, :20])]
     err = 0.0
     for label, q, r in cases:
+        q, r = q.contiguous(), r.contiguous()
         err = max(err, check(f"nn1_coords {label}", cuda_nn.nn1_coords(q, r),
-                             cuda_nn.nn1_coords_plain(q, r), exact={1, 2}))
-        log(f"nn1_coords {label}: indices and coords exact, distances "
-            f"within {FLOAT_TOL}")
+                             cuda_nn.nn1_coords_plain(q, r),
+                             exact={0, 1, 2}))
+        plan = cuda_nn.nn1_coords_plan(q.shape[0], q.shape[1], r.shape[1],
+                                       sms)
+        log(f"nn1_coords {label}: distances, indices and coords exact "
+            f"(route {plan})")
     out = cuda_nn.nn1_coords(pair_q, pair_r)
+    lib = _build.load_library()
+
+    def empty():  # on the current stream: a graph's capture stream too
+        _build.check_launch("empty kernel", lib.reart_empty_kernel(
+            torch.cuda.current_stream(dev).cuda_stream))
+
     stats["nn1_coords"] = dict(
         shape="(400, 20, 20)", max_abs_err=err,
-        # 400 one-warp blocks: 50 back-to-back calls never fill the queue,
-        # so the kernel's time is read from a replayed graph
+        # a few hundred warps: 50 back-to-back calls never fill the queue,
+        # so the kernel's time is read from a replayed graph, beside an
+        # empty kernel's in the same harness (the launch floor)
         ms=graph_ms(lambda: cuda_nn.nn1_coords(pair_q, pair_r)),
+        ms_launch_floor=graph_ms(empty),
         ms_host=many_ms(lambda: cuda_nn.nn1_coords(pair_q, pair_r), 50, 5),
         plain_ms=many_ms(lambda: cuda_nn.nn1_coords_plain(pair_q, pair_r),
                          10, 5),
+        **{f"ms_p{p}": graph_ms(lambda p=p: cuda_nn.nn1_coords(*paths[p]))
+           for p in (6, 5, 4)},
         ms_cloud_9=many_ms(lambda: cuda_nn.nn1_coords(src, pcs)),
         **bound(PAIR_FLOPS * 400 * 20 * 20, (pair_q, pair_r, *out)))
+    st = stats["nn1_coords"]
+    log(f"nn1_coords (400, 20, 20): {st['ms']:.5f} ms on the device, an "
+        f"empty kernel {st['ms_launch_floor']:.5f} ms in the same harness")
 
-    # row 3: bidirectional 1-NN without coords: the Chamfer metric
+    # row 3: bidirectional 1-NN without coords: the Chamfer metric at the
+    # frame stacks of the full-width runs (robot 9, sapien 7, real 5 frames
+    # of 4096 points)
+    frames = {t: (pcs[:1].repeat(t, 1, 1) + 0.01 * randn(t, 4096, 3),
+                  pcs[:1].repeat(t, 1, 1) + 0.01 * randn(t, 4096, 3))
+              for t in (7, 5)}
     cases = [("(9, 4096, 4096)", src, pcs),
+             *((f"({t}, 4096, 4096)", *frames[t]) for t in (7, 5)),
+             ("B=1 (1, 4096, 4096)", src[:1], pcs[:1]),
              ("ragged (2, 300, 1500)", randn(2, 300, 3), randn(2, 1500, 3)),
+             ("N > M ragged (2, 1500, 300)", randn(2, 1500, 3),
+              randn(2, 300, 3)),
+             ("no tile multiple (3, 97, 211)", randn(3, 97, 3),
+              randn(3, 211, 3)),
+             ("(400, 20, 20)", pair_q, pair_r),
              ("duplicates (1, 200, 1200)", tie_q, tie_r),
              ("all ties (2, 70, 70)", zero, zero)]
     err = 0.0
     for label, a, b in cases:
+        a, b = a.contiguous(), b.contiguous()
         err = max(err, check(f"nn_bidir {label}", cuda_nn.nn_bidir(a, b),
-                             cuda_nn.nn_bidir_plain(a, b), exact={1, 3}))
-        log(f"nn_bidir {label}: indices exact, distances within {FLOAT_TOL}")
+                             cuda_nn.nn_bidir_plain(a, b),
+                             exact={0, 1, 2, 3}))
+        plan = cuda_nn.nn_bidir_plan(a.shape[0], a.shape[1], b.shape[1], sms)
+        log(f"nn_bidir {label}: distances and indices exact (warps, run, "
+            f"blocks: {plan})")
     out = cuda_nn.nn_bidir(src, pcs)
     stats["nn_bidir"] = dict(
         shape="(9, 4096, 4096)", max_abs_err=err,
         ms=many_ms(lambda: cuda_nn.nn_bidir(src, pcs)),
+        ms_device=graph_ms(lambda: cuda_nn.nn_bidir(src, pcs), 20),
         plain_ms=median_ms(lambda: cuda_nn.nn_bidir_plain(src, pcs), 5),
+        **{f"ms_{t}": graph_ms(lambda t=t: cuda_nn.nn_bidir(*frames[t]), 20)
+           for t in (7, 5)},
         **bound(PAIR_FLOPS * 9 * 4096 * 4096, (src, pcs, *out)))
+    st = stats["nn_bidir"]
+    # the instruction floor: BIDIR_INSTR_PER_PAIR instructions a pair at one
+    # instruction a lane a clock on every SM, at the boost clock
+    floor_ms = 1e3 * BIDIR_INSTR_PER_PAIR * 9 * 4096 * 4096 / (
+        sms * 128 * BOOST_HZ)
+    log(f"nn_bidir (9, 4096, 4096): {st['ms']:.5f} ms ({st['ms_device']:.5f}"
+        f" on the device), {100 * st['bound_ms'] / st['ms']:.1f}% of the "
+        f"{st['bound_ms']:.5f} ms bound, {100 * floor_ms / st['ms']:.1f}% of "
+        f"the {floor_ms:.4f} ms instruction floor ({BIDIR_INSTR_PER_PAIR} "
+        f"instructions a pair); frame stacks of 7 and 5: "
+        f"{st['ms_7']:.5f}, {st['ms_5']:.5f} ms on the device")
 
 
 def sweep_kernel_phase(dev, gen, src, pcs, stats):
     """row_top2 and col_winner_max against their plain versions, and the
     sweep route of auction_lap against the same loop over plain versions."""
+    from reart_tpu_torch.bench_nn import bound
     from reart_tpu_torch.ops import assignment, cuda_auction
     from reart_tpu_torch.ops.distance import pairwise_sqdist
 
@@ -964,6 +1016,7 @@ def large_kernel_phase(dev, benefit, stats):
     kernel's (the same cluster sweep without the split row pass) launched
     at the same shape, and its bound (the benefit read once; operations for
     the rows the cache did not answer, counted by the kernel's probe)."""
+    from reart_tpu_torch.bench_nn import bound_of
     from reart_tpu_torch.ops import assignment, cuda_auction
     from reart_tpu_torch.ops.distance import pairwise_sqdist
 
@@ -1168,6 +1221,7 @@ def streamed_kernel_phase(dev, gen, stats):
     element; the bound, the benefit read once; the large kernel, which
     runs the same cluster sweep past 2048^2, is held to the plain version
     on the same inputs."""
+    from reart_tpu_torch.bench_nn import bound_of
     from reart_tpu_torch.ops import assignment, cuda_auction
     from reart_tpu_torch.ops.distance import pairwise_sqdist
 
@@ -1375,6 +1429,7 @@ def ball_query_phase(dev, gen, stats):
     points; SA2: 128 of those 512); a training batch as the `corr` trainer
     makes it (4 synthetic pairs of 1024 points: 8 clouds); the held-out pair
     of its evaluation (2 clouds). Then ball_query's edge cases."""
+    from reart_tpu_torch.bench_nn import PAIR_FLOPS, bound
     from reart_tpu_torch.models.pointnet2 import SA1, SA2
     from reart_tpu_torch.ops import cuda_fps, cuda_nn
     from reart_tpu_torch.train.corr import (
@@ -2272,7 +2327,7 @@ def device_time_by_name(prof):
 KERNEL_CLASSES = (
     ("the port's kernels", ("ball_query_kernel", "fps_kernel",
                             "nn_topk_kernel", "blend3_kernel", "nn1_bidir_",
-                            "auction", "nn1_coords_kernel", "nn_bidir_kernel",
+                            "auction", "nn1_coords_", "nn_bidir_",
                             "row_top2_kernel", "col_winner_kernel")),
     ("matrix products", ("gemm", "cutlass", "cublas", "gemv")),
     ("reductions", ("reduce_kernel",)),
@@ -2670,6 +2725,7 @@ def banded_kernel_phase(dev, tmp, stats):
     (cuda_auction.banded_route, cluster_config). Times: warm and cold, the first sweeps
     alone and the rest per sweep, beside the global-state design on the
     same inputs."""
+    from reart_tpu_torch.bench_nn import PAIR_FLOPS, bound_of
     from reart_tpu_torch.data.sapien import SapienDataset
     from reart_tpu_torch.data.synth import make_robot_sample, make_sapien_scene
     from reart_tpu_torch.ops import cuda_auction

@@ -1,31 +1,44 @@
-"""Time the neighbour kernels nn_topk and ball_query on the card.
+"""Time the neighbour kernels nn_bidir, nn1_coords, nn_topk and ball_query
+on the card.
 
     python -m reart_tpu_torch.bench_nn [--sweep]
     PYTHONPATH=<a checkout> python <this file> --wrappers_only
 
-Part 1, the wrappers: `ops.cuda_nn.nn_topk` at every shape the paths
-launch (the seg-refinement table, 20 candidate clouds a frame against their
-frame, k=1; (9, 4096, 4096) at k=1 and k=3; one 4096-point cloud against
-itself at k=8; IK's label transfer, 6 points against 4096; the backbone's
-four 3-NN shapes), `ball_query` at SA1 r=0.2 K=128 of the nine flow clouds
-and a training batch's five groupings, and, as controls that share none of
-the redesigned code, `nn_bidir` at (9, 4096, 4096) and `nn1_coords` at
-(400, 20, 20). Each output is checked against its plain version (indices
-and distances exact), then timed on the device: a CUDA graph of many calls
-replayed between two CUDA events, the median of 5 (ms a call). Only public
-wrappers are called, so with PYTHONPATH set to another checkout and
---wrappers_only the same file times that checkout's kernels.
+Part 1, the wrappers: `ops.cuda_nn.nn_bidir` at the Chamfer metric's frame
+stacks (the robot runs' 9, the sapien runs' 7 and the real runs' 5 frames
+of 4096 points, as chip_smoke.py's full-width runs call it);
+`nn1_coords` at the graph stage's (P^2, 20, 20) for P = 20 and the P = 6, 5
+and 4 of those runs, and at (9, 4096, 4096); beside them, in the same
+harness, an empty
+kernel (the launch floor; a checkout without one prints "not built");
+`nn_topk` at every shape the paths launch (the seg-refinement table, 20
+candidate clouds a frame against their frame, k=1; (9, 4096, 4096) at k=1
+and k=3; one 4096-point cloud against itself at k=8; IK's label transfer,
+6 points against 4096; the backbone's four 3-NN shapes), `ball_query` at
+SA1 r=0.2 K=128 of the nine flow clouds and a training batch's five
+groupings, and, as a control that shares none of their code,
+`nn1_bidir_coords` at (9, 4096, 4096). Each output is checked against its
+plain version (indices, coordinates and distances exact), then timed on
+the device: a CUDA graph of many calls replayed between two CUDA events,
+the median of 5 (ms a call), beside its bound (`bound`: the card's peaks;
+ball_query's depends on the data, chip_smoke.py phase 3 reckons it). Only
+public wrappers are called, so with
+PYTHONPATH set to another checkout and --wrappers_only the same file times
+that checkout's kernels.
 
 Part 2, the options: variants of the kernel library with one option size of
 `ops._build.DEFINES` changed each (REART_NN_QPT, the queries an nn_topk
 thread carries; REART_BQ_V, the points a ball_query lane looks at per
-step), each into its own file under reart_tpu_torch/_build/; every
-variant is checked against the plain versions, then each is timed twice,
-in the order A B ... B A on one card.
+step), each into its own file under reart_tpu_torch/_build/; every variant is checked against
+the plain versions, then each is timed twice, in the order A B ... B A on
+one card.
 
-With --sweep, then: every (queries a thread, slices) of nn_topk and every
-block size of ball_query at each shape, the library as built, each checked
-and timed once (how `nn_topk_plan` and `ball_query_warps` were chosen).
+With --sweep, then: every (warps, run, blocks) of nn_bidir, every warps a
+block of nn1_coords' packed route, every (queries a thread, slices) of
+nn_topk and every block size of ball_query at each shape, the library as
+built, each checked and timed once (how `nn_bidir_plan`,
+`nn1_coords_plan`, `nn_topk_plan` and `ball_query_warps` were chosen; each
+line names the fastest choice and the plan's distance from it).
 
 Prints one line a shape or variant with the card's name and power limit.
 Needs one CUDA card.
@@ -34,6 +47,7 @@ Needs one CUDA card.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import subprocess
 import sys
 
@@ -65,6 +79,35 @@ def graph_ms(fn, launches=20, reps=5):
         end.synchronize()
         times.append(start.elapsed_time(end) / launches)
     return float(np.median(times))
+
+
+# published peaks of one H100 SXM at its full 700 W: float32 outside the
+# tensor cores, and device memory (chip_smoke.py's bounds use these too)
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+# one squared distance: 3 subtractions, 3 products, 2 additions
+PAIR_FLOPS = 8
+
+
+def bound_of(flops, nbytes):
+    """The least time (ms) the card could take: the larger of `flops` over
+    the float32 peak and `nbytes` over the memory rate."""
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    return dict(bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def bound(flops, tensors):
+    """`bound_of` with the bytes of `tensors`: each input read once, each
+    output written once."""
+    return bound_of(flops, sum(t.numel() * t.element_size()
+                               for t in tensors))
+
+
+def bound_text(pairs, tensors):
+    """`bound` of `pairs` (query, reference) pairs, as a line's words."""
+    b = bound(PAIR_FLOPS * pairs, tensors)
+    return f"bound {b['bound_ms']:.7f} ms by {b['bound_by']}"
 
 
 def clouds(dev):
@@ -106,7 +149,32 @@ def clouds(dev):
             out.append(torch.gather(y, 1, idx[..., None].expand(-1, -1, 3))
                        .contiguous())
         levels[group] = out
-    return dict(cano=cano, pcs=pcs, src=src, table=table, levels=levels)
+    stacks = {t: tuple((cano + 0.01 * randn(t, 4096, 3)).contiguous()
+                       for _ in range(2)) for t in (7, 5)}
+    pairs = {}
+    for p in (20, 6, 5, 4):
+        a = cano[:p * 20].reshape(p, 20, 3)
+        pairs[p] = (a[:, None].expand(p, p, 20, 3).reshape(p * p, 20, 3)
+                    .contiguous(),
+                    a[None].expand(p, p, 20, 3).reshape(p * p, 20, 3)
+                    .contiguous())
+    return dict(cano=cano, pcs=pcs, src=src, table=table, levels=levels,
+                stacks=stacks, pairs=pairs)
+
+
+def bidir_shapes(x):
+    """label -> (src, tgt) of nn_bidir: the frame stacks of the paths."""
+    shapes = {"(9, 4096, 4096)": (x["src"], x["pcs"])}
+    shapes.update({f"({t}, 4096, 4096)": x["stacks"][t] for t in (7, 5)})
+    return shapes
+
+
+def coords_shapes(x):
+    """label -> (query, ref) of nn1_coords: the graph stage's part pairs,
+    and one cloud-scale batch (the topk route)."""
+    shapes = {f"({p * p}, 20, 20)": x["pairs"][p] for p in (20, 6, 5, 4)}
+    shapes["(9, 4096, 4096)"] = (x["src"], x["pcs"])
+    return shapes
 
 
 def topk_shapes(x):
@@ -156,12 +224,15 @@ def plain_topk(q, r, k):
 def wrappers(card, x):
     """Part 1: each wrapper at each shape, checked, then timed."""
     for label, (q, r, k) in topk_shapes(x).items():
-        if not same(C.nn_topk(q, r, k), plain_topk(q, r, k)):
+        out = C.nn_topk(q, r, k)
+        if not same(out, plain_topk(q, r, k)):
             raise AssertionError(f"nn_topk {label}: differs from the plain "
                                  f"version")
         ms = graph_ms(lambda: C.nn_topk(q, r, k),
                       5 if "table" in label else 50)
-        print(f"{card}: nn_topk {label}: {ms:.5f} ms", flush=True)
+        pairs = q.numel() // 3 * r.shape[-2]
+        print(f"{card}: nn_topk {label}: {ms:.5f} ms; "
+              f"{bound_text(pairs, (q, r, *out))}", flush=True)
     total = 0.0
     for label, (rad, k, xyz, new) in ball_shapes(x).items():
         got = C.ball_query(rad, k, xyz, new)
@@ -173,18 +244,45 @@ def wrappers(card, x):
         print(f"{card}: ball_query {label}: {ms:.5f} ms", flush=True)
     print(f"{card}: ball_query the training batch's five: {total:.5f} ms",
           flush=True)
+    for label, (a, b) in bidir_shapes(x).items():
+        out = C.nn_bidir(a, b)
+        if not same(out, C.nn_bidir_plain(a, b)):
+            raise AssertionError(f"nn_bidir {label}: differs from the plain "
+                                 f"version")
+        pairs = a.shape[0] * a.shape[1] * b.shape[1]
+        print(f"{card}: nn_bidir {label}: "
+              f"{graph_ms(lambda: C.nn_bidir(a, b)):.5f} ms; "
+              f"{bound_text(pairs, (a, b, *out))}", flush=True)
+    for label, (q, r) in coords_shapes(x).items():
+        out = C.nn1_coords(q, r)
+        if not same(out, C.nn1_coords_plain(q, r)):
+            raise AssertionError(f"nn1_coords {label}: differs from the "
+                                 f"plain version")
+        ms = graph_ms(lambda: C.nn1_coords(q, r),
+                      100 if q.shape[1] <= 32 else 20)
+        pairs = q.shape[0] * q.shape[1] * r.shape[1]
+        print(f"{card}: nn1_coords {label}: {ms:.5f} ms; "
+              f"{bound_text(pairs, (q, r, *out))}", flush=True)
+    lib = _build.load_library()
+    empty = getattr(lib, "reart_empty_kernel", None)
+    if empty is None:
+        print(f"{card}: empty kernel: not built in this checkout", flush=True)
+    else:
+        empty.argtypes, empty.restype = [ctypes.c_void_p], ctypes.c_int
+
+        def launch_empty():  # on the current stream: the capture's too
+            _build.check_launch("empty kernel", empty(
+                torch.cuda.current_stream().cuda_stream))
+
+        print(f"{card}: empty kernel (the launch floor): "
+              f"{graph_ms(launch_empty, 100):.5f} ms", flush=True)
     src, pcs = x["src"], x["pcs"]
-    if not same(C.nn_bidir(src, pcs), C.nn_bidir_plain(src, pcs)):
-        raise AssertionError("nn_bidir differs from the plain version")
-    print(f"{card}: nn_bidir (9, 4096, 4096): "
-          f"{graph_ms(lambda: C.nn_bidir(src, pcs)):.5f} ms", flush=True)
-    a = x["cano"][:400].reshape(20, 20, 3)
-    pq = a[:, None].expand(20, 20, 20, 3).reshape(400, 20, 3).contiguous()
-    pr = a[None].expand(20, 20, 20, 3).reshape(400, 20, 3).contiguous()
-    if not same(C.nn1_coords(pq, pr), C.nn1_coords_plain(pq, pr)):
-        raise AssertionError("nn1_coords differs from the plain version")
-    print(f"{card}: nn1_coords (400, 20, 20): "
-          f"{graph_ms(lambda: C.nn1_coords(pq, pr), 100):.5f} ms",
+    if not same(C.nn1_bidir_coords(src, pcs),
+                C.nn1_bidir_coords_plain(src, pcs)):
+        raise AssertionError("nn1_bidir_coords differs from the plain "
+                             "version")
+    print(f"{card}: nn1_bidir_coords (9, 4096, 4096), control: "
+          f"{graph_ms(lambda: C.nn1_bidir_coords(src, pcs)):.5f} ms",
           flush=True)
 
 
@@ -219,6 +317,37 @@ def topk_launch(lib, qpt_built, q, r, k, force=None):
         qf.data_ptr(), rf.data_ptr(), bf, nf, m, k, qpt, slices,
         d.data_ptr(), i.data_ptr(), _build.stream_of(qf)))
     return d.reshape(batch + (n, k)), i.reshape(batch + (n, k))
+
+
+def bidir_launch(lib, a, b, force=None):
+    """nn_bidir through `lib`'s C entry point, as the wrapper launches it;
+    `force`, a (warps, run, blocks) triple, replaces the plan."""
+    n_b, n, m = a.shape[0], a.shape[1], b.shape[1]
+    warps, run, blocks = force or C.nn_bidir_plan(
+        n_b, n, m, _build.sm_count(a.device))
+    f32 = dict(dtype=torch.float32, device=a.device)
+    i64 = dict(dtype=torch.int64, device=a.device)
+    fd, fi = torch.empty((n_b, n), **f32), torch.empty((n_b, n), **i64)
+    bd, bi = torch.empty((n_b, m), **f32), torch.empty((n_b, m), **i64)
+    fkey, bkey = torch.empty((n_b, n), **i64), torch.empty((n_b, m), **i64)
+    _build.check_launch("nn_bidir", lib.reart_nn_bidir(
+        a.data_ptr(), b.data_ptr(), n_b, n, m, warps, run, blocks,
+        fd.data_ptr(), fi.data_ptr(), bd.data_ptr(), bi.data_ptr(),
+        fkey.data_ptr(), bkey.data_ptr(), _build.stream_of(a)))
+    return fd, fi, bd, bi
+
+
+def coords_launch(lib, q, r, plan):
+    """nn1_coords through `lib`'s C entry point with the route `plan`."""
+    b, n = q.shape[0], q.shape[1]
+    d = torch.empty((b, n), dtype=torch.float32, device=q.device)
+    i = torch.empty((b, n), dtype=torch.int64, device=q.device)
+    c = torch.empty((b, n, 3), dtype=torch.float32, device=q.device)
+    _build.check_launch("nn1_coords", lib.reart_nn1_coords(
+        q.data_ptr(), r.data_ptr(), b, n, r.shape[1], int(plan[0] == "topk"),
+        plan[1], plan[2], d.data_ptr(), i.data_ptr(), c.data_ptr(),
+        _build.stream_of(q)))
+    return d, i, c
 
 
 def ball_launch(lib, rad, k, xyz, new, warps=None):
@@ -277,6 +406,44 @@ def sweep(card, x):
     timed once; the plans' choices are marked *."""
     lib = _build.load_library()
     sms = _build.sm_count(x["cano"].device)
+
+    def report(what, label, plan, timed):
+        """timed: [(choice, ms)]; the plan's choice is marked *."""
+        fastest = min(timed, key=lambda t: t[1])
+        mine = dict(timed)[plan]
+        print(f"{card}: sweep {what} {label}: " + "; ".join(
+            f"{c}{'*' if c == plan else ''} {ms:.5f}" for c, ms in timed)
+            + f"; fastest {fastest[0]}, the plan "
+            f"{100 * (mine / fastest[1] - 1):.1f}% slower", flush=True)
+
+    for label, (a, b) in bidir_shapes(x).items():
+        ref = C.nn_bidir_plain(a, b)
+        plan = C.nn_bidir_plan(a.shape[0], a.shape[1], b.shape[1], sms)
+        timed = []
+        units = C.nn_bidir_units(a.shape[0], a.shape[1], b.shape[1], 8, 16)
+        for choice in sorted({plan} | {(w, run, g) for w in (4, 8)
+                                       for run in (8, 16)
+                                       for g in (sms, 2 * sms, 3 * sms,
+                                                 4 * sms, units)}):
+            fn = (lambda choice=choice:
+                  bidir_launch(lib, a, b, force=choice))
+            if not same(fn(), ref):
+                raise AssertionError(f"nn_bidir {label} {choice}")
+            timed.append((choice, graph_ms(fn, 20)))
+        report("nn_bidir", label, plan, timed)
+    for label, (q, r) in coords_shapes(x).items():
+        if q.shape[1] > C.NN1C_MAX_PACKED:
+            continue
+        ref = C.nn1_coords_plain(q, r)
+        plan = C.nn1_coords_plan(q.shape[0], q.shape[1], r.shape[1], sms)
+        timed = []
+        for w in range(1, C.NN1C_MAX_WARPS + 1):
+            choice = ("packed", plan[1], w)
+            fn = lambda choice=choice: coords_launch(lib, q, r, choice)  # noqa
+            if not same(fn(), ref):
+                raise AssertionError(f"nn1_coords {label} {choice}")
+            timed.append((choice, graph_ms(fn, 100)))
+        report("nn1_coords", label, plan, timed)
     for label, (q, r, k) in topk_shapes(x).items():
         ref = plain_topk(q, r, k)
         qf, rf, ref_div, _ = C._flatten_query_ref("nn_topk", q, r)

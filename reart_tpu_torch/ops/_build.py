@@ -76,10 +76,15 @@ SIGNATURES = {
     "reart_auction_banded_config": (_I, _I, _I, _P),
     # query, ref, B, N, M, k, queries a thread, slices, out_d, out_i, stream
     "reart_nn_topk": (_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
-    # query, ref, B, N, M, out_d, out_i, out_c, stream
-    "reart_nn1_coords": (_P, _P, _I, _I, _I, _P, _P, _P, _P),
-    # src, tgt, B, N, M, fd, fi, bd, bi, stream
-    "reart_nn_bidir": (_P, _P, _I, _I, _I, _P, _P, _P, _P, _P),
+    # query, ref, B, N, M, route (0 packed, 1 topk), lanes a pair or queries
+    # a thread, warps a block or slices, out_d, out_i, out_c, stream
+    "reart_nn1_coords": (_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
+    # src, tgt, B, N, M, warps, run, blocks, fd, fi, bd, bi, fkey, bkey
+    # (scratch), stream
+    "reart_nn_bidir": (_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                       _P, _P),
+    # stream: one launch of an empty kernel (the launch floor)
+    "reart_empty_kernel": (_P,),
     # benefit, price, B, N, M, best_v, second_v, best_j, stream
     "reart_row_top2": (_P, _P, _I, _I, _I, _P, _P, _P, _P),
     # bid, best_j, B, N, M, col_bid, col_winner, stream

@@ -18,10 +18,10 @@ Counterpart of reart_tpu/ops/pallas_nn.py:
     order (Pallas `ball_query_pallas`): the grouping of the PointNet++
     set-abstraction layers.
 
-`nn1_bidir_coords`, `blend3` and `nn_topk` split their scans across
-threads and blocks and merge the partial winners in (distance, index) order
-(csrc/nn_split.cuh); `nn1_coords` and `nn_bidir` share the one-query-per-
-thread scan of csrc/nn_scan.cuh.
+`nn1_bidir_coords`, `blend3`, `nn_topk` and `nn_bidir` split their scans
+across threads and blocks and merge the partial winners in (distance,
+index) order (csrc/nn_split.cuh); `nn1_coords` walks small cloud pairs in
+groups of lanes and larger ones through `nn_topk`'s k = 1 kernel.
 
 Each wrapper takes the plain version for a CPU tensor and launches its
 kernel for a CUDA tensor (or raises); `<wrapper>.launches` counts kernel
@@ -51,6 +51,27 @@ BLEND3_MIN_SLICE = 64
 BLEND3_SAMPLE = 4
 # nn_topk, nn1_coords, nn_bidir and ball_query fold the batch into gridDim.x
 MAX_BLOCKS = 2 ** 31 - 1
+# nn_bidir: a unit is a row block of W warps (a power of two up to
+# NN_BIDIR_MAX_WARPS) x NN_BIDIR_RT src rows (kRT of csrc/nn_bidir.cu)
+# against a chunk of 32 L tgt columns (L up to NN_BIDIR_MAX_RUN); the grid
+# is the blocks an SM holds at once (NN_BIDIR_WARPS_PER_SM warps,
+# registers; at most NN_BIDIR_BLOCKS_PER_SM blocks, shared memory) on every
+# SM, each block an equal run of units; see nn_bidir_plan
+NN_BIDIR_RT = 16
+NN_BIDIR_MAX_WARPS = 8
+NN_BIDIR_MAX_RUN = 16
+NN_BIDIR_WARPS_PER_SM = 16
+NN_BIDIR_BLOCKS_PER_SM = 6
+# nn1_coords: clouds of at most NN1C_MAX_PACKED points each go NN1C_LANES
+# lanes a pair (the smallest that holds both), NN1C_WARPS warps a block
+# (1 to NN1C_MAX_WARPS are within 0.1 us of each other at the graph stage's
+# shapes on an H100; 3 puts P = 20's 400 pairs in 134 blocks, a block on
+# each of 132 SMs); larger ones through nn_topk's k = 1 kernel; see
+# nn1_coords_plan
+NN1C_MAX_PACKED = 32
+NN1C_LANES = (8, 16, 32)
+NN1C_WARPS = 3
+NN1C_MAX_WARPS = 8
 # largest k of nn_topk: the kernel keeps its running top-k in registers, in
 # instances for k = 1, 3 and 8 (the largest k the package asks for)
 MAX_K = 8
@@ -387,6 +408,28 @@ def nn1_coords_plain(query: torch.Tensor, ref: torch.Tensor):
     return d, i, _gather_rows(ref, i)
 
 
+def nn1_coords_plan(b: int, n: int, m: int, sms: int,
+                    qpt: int = NN_QPT) -> tuple[str, int, int]:
+    """The route of nn1_coords' kernel for b pairs of clouds, n queries
+    against m points each, on a card of `sms` SMs: ("packed", lanes a pair,
+    NN1C_WARPS warps a block) where both clouds fit NN1C_MAX_PACKED points,
+    the fewest lanes of NN1C_LANES that hold both; else ("topk", queries a
+    thread, slices), nn_topk_plan's for k = 1. The graph stage's (P^2, 20,
+    20) takes ("packed", 32, 3): at P = 20, 134 blocks of 3 pairs; at the
+    P = 6, 5, 4 of the full-width runs, 12, 9 or 6 blocks."""
+    if n > NN1C_MAX_PACKED or m > NN1C_MAX_PACKED:
+        return ("topk",) + nn_topk_plan(b, n, m, 1, sms, qpt)
+    return "packed", min(w for w in NN1C_LANES if w >= max(n, m)), NN1C_WARPS
+
+
+def nn1_coords_blocks(b: int, n: int, plan: tuple[str, int, int]) -> int:
+    """Blocks of nn1_coords' first kernel for b pairs of n queries."""
+    route, a, c = plan
+    if route == "packed":
+        return -(-b // (c * 32 // a))
+    return nn_topk_blocks(b, n, a, c)
+
+
 def nn1_coords(query: torch.Tensor, ref: torch.Tensor):
     """1-NN with the winner's coords; see nn1_coords_plain."""
     name = "nn1_coords"
@@ -395,7 +438,9 @@ def nn1_coords(query: torch.Tensor, ref: torch.Tensor):
         return nn1_coords_plain(query, ref)
     _build.require_cuda(name, query, ref, dtype=torch.float32)
     b, n, m = query.shape[0], query.shape[1], ref.shape[1]
-    if b * (-(-n // 32)) > MAX_BLOCKS:
+    plan = nn1_coords_plan(b, n, m, _build.sm_count(query.device))
+    if (nn1_coords_blocks(b, n, plan) > MAX_BLOCKS
+            or -(-b * n // 256) > MAX_BLOCKS):
         raise ValueError(f"{name}: batch {b} x {n} queries is past the grid "
                          f"limit")
     d = torch.empty((b, n), dtype=torch.float32, device=query.device)
@@ -403,9 +448,10 @@ def nn1_coords(query: torch.Tensor, ref: torch.Tensor):
     c = torch.empty((b, n, 3), dtype=torch.float32, device=query.device)
     lib = _build.load_library()
     with torch.cuda.device(query.device):
-        err = lib.reart_nn1_coords(query.data_ptr(), ref.data_ptr(), b, n, m,
-                                   d.data_ptr(), i.data_ptr(), c.data_ptr(),
-                                   _build.stream_of(query))
+        err = lib.reart_nn1_coords(
+            query.data_ptr(), ref.data_ptr(), b, n, m,
+            int(plan[0] == "topk"), plan[1], plan[2], d.data_ptr(),
+            i.data_ptr(), c.data_ptr(), _build.stream_of(query))
     _build.check_launch(name, err)
     nn1_coords.launches += 1
     return d, i, c
@@ -433,6 +479,32 @@ def nn_bidir_plain(src: torch.Tensor, tgt: torch.Tensor):
     return tuple(torch.cat(o) for o in outs)
 
 
+def nn_bidir_units(b: int, n: int, m: int, warps: int, run: int) -> int:
+    """Units of nn_bidir's scan for b clouds of n src rows against m tgt
+    columns: row blocks of warps * NN_BIDIR_RT rows times chunks of 32 run
+    columns, as csrc/nn_bidir.cu cuts the plane."""
+    return b * -(-n // (warps * NN_BIDIR_RT)) * -(-m // (32 * run))
+
+
+def nn_bidir_plan(b: int, n: int, m: int,
+                  sms: int) -> tuple[int, int, int]:
+    """(warps a block W, run L, blocks G) of nn_bidir's scan for b clouds of
+    n src rows against m tgt columns on a card of `sms` SMs. W: the power of
+    two up to NN_BIDIR_MAX_WARPS that holds the n rows at NN_BIDIR_RT a
+    warp; L: the m columns over 32 lanes, up to NN_BIDIR_MAX_RUN; G: the
+    blocks every SM holds at once (NN_BIDIR_WARPS_PER_SM / W, at most NN_BIDIR_BLOCKS_PER_SM), or the
+    units where there are fewer. On 132 SMs the Chamfer metric's (9, 7 or
+    5, 4096, 4096) take (8, 16, 264): 2304, 1792 or 1280 units of 128 rows
+    x 512 columns over 264 blocks. The choice changes no bit of the
+    result."""
+    warps = 1
+    while warps < NN_BIDIR_MAX_WARPS and warps * NN_BIDIR_RT < n:
+        warps *= 2
+    run = min(NN_BIDIR_MAX_RUN, -(-m // 32))
+    per_sm = min(NN_BIDIR_BLOCKS_PER_SM, NN_BIDIR_WARPS_PER_SM // warps)
+    return warps, run, min(nn_bidir_units(b, n, m, warps, run), per_sm * sms)
+
+
 def nn_bidir(src: torch.Tensor, tgt: torch.Tensor):
     """Bidirectional 1-NN without coords; see nn_bidir_plain."""
     name = "nn_bidir"
@@ -441,18 +513,23 @@ def nn_bidir(src: torch.Tensor, tgt: torch.Tensor):
         return nn_bidir_plain(src, tgt)
     _build.require_cuda(name, src, tgt, dtype=torch.float32)
     b, n, m = src.shape[0], src.shape[1], tgt.shape[1]
-    if b * (-(-max(n, m) // 32)) > MAX_BLOCKS:
-        raise ValueError(f"{name}: batch {b} x {max(n, m)} queries is past "
-                         f"the grid limit")
+    warps, run, blocks = nn_bidir_plan(b, n, m, _build.sm_count(src.device))
+    if -(-b * (n + m) // 256) > MAX_BLOCKS:
+        raise ValueError(f"{name}: batch {b} x {n} x {m} points is past the "
+                         f"grid limit")
     f32 = dict(dtype=torch.float32, device=src.device)
     i64 = dict(dtype=torch.int64, device=src.device)
     fd, fi = torch.empty((b, n), **f32), torch.empty((b, n), **i64)
     bd, bi = torch.empty((b, m), **f32), torch.empty((b, m), **i64)
+    # the (distance, group) keys of the merge; the kernel sets them
+    fkey, bkey = torch.empty((b, n), **i64), torch.empty((b, m), **i64)
     lib = _build.load_library()
     with torch.cuda.device(src.device):
         err = lib.reart_nn_bidir(src.data_ptr(), tgt.data_ptr(), b, n, m,
-                                 fd.data_ptr(), fi.data_ptr(), bd.data_ptr(),
-                                 bi.data_ptr(), _build.stream_of(src))
+                                 warps, run, blocks, fd.data_ptr(),
+                                 fi.data_ptr(), bd.data_ptr(), bi.data_ptr(),
+                                 fkey.data_ptr(), bkey.data_ptr(),
+                                 _build.stream_of(src))
     _build.check_launch(name, err)
     nn_bidir.launches += 1
     return fd, fi, bd, bi

@@ -14,7 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from reart_tpu_torch.ops import cuda_auction, cuda_fps, cuda_nn
+from reart_tpu_torch import bench_nn
+from reart_tpu_torch.ops import _build, cuda_auction, cuda_fps, cuda_nn
 
 torch.set_num_threads(1)
 
@@ -729,28 +730,34 @@ def test_batch_past_65535(cuda):
     _same(cuda_nn.nn_topk(q.to(cuda), r.to(cuda), 3),
           cuda_nn.nn_topk_plain(q, r, 3), exact={0, 1})
     _same(cuda_nn.nn1_coords(q.to(cuda), r.to(cuda)),
-          cuda_nn.nn1_coords_plain(q, r), exact={1, 2})
+          cuda_nn.nn1_coords_plain(q, r), exact={0, 1, 2})
     _same(cuda_nn.nn_bidir(q.to(cuda), r.to(cuda)),
-          cuda_nn.nn_bidir_plain(q, r), exact={1, 3})
+          cuda_nn.nn_bidir_plain(q, r), exact={0, 1, 2, 3})
 
 
 @pytest.mark.parametrize("b,n,m", [(1, 1, 1), (400, 20, 20), (2, 129, 1025),
-                                   (1, 4097, 3), (2, 33, 2049)])
+                                   (1, 4097, 3), (2, 33, 2049),
+                                   # N != M both ways, no size a multiple of
+                                   # a tile, B = 1, the graph stage's
+                                   # (P^2, 20, 20) at P = 7 and 2
+                                   (2, 300, 1500), (2, 1500, 300),
+                                   (3, 97, 211), (1, 4096, 4096),
+                                   (49, 20, 20), (4, 20, 20), (5, 3, 31)])
 def test_nn1_coords_and_nn_bidir_ragged(cuda, b, n, m):
     q, r = _randn(b * n, b, n, 3), _randn(m, b, m, 3)
     _same(cuda_nn.nn1_coords(q.to(cuda), r.to(cuda)),
-          cuda_nn.nn1_coords_plain(q, r), exact={1, 2})
+          cuda_nn.nn1_coords_plain(q, r), exact={0, 1, 2})
     _same(cuda_nn.nn_bidir(q.to(cuda), r.to(cuda)),
-          cuda_nn.nn_bidir_plain(q, r), exact={1, 3})
+          cuda_nn.nn_bidir_plain(q, r), exact={0, 1, 2, 3})
 
 
 def test_nn1_coords_and_nn_bidir_ties(cuda):
     base = _randn(0, 1, 4, 3)
     q, r = base.repeat(1, 50, 1), base.repeat(1, 300, 1)
     _same(cuda_nn.nn1_coords(q.to(cuda), r.to(cuda)),
-          cuda_nn.nn1_coords_plain(q, r), exact={1, 2})
+          cuda_nn.nn1_coords_plain(q, r), exact={0, 1, 2})
     _same(cuda_nn.nn_bidir(q.to(cuda), r.to(cuda)),
-          cuda_nn.nn_bidir_plain(q, r), exact={1, 3})
+          cuda_nn.nn_bidir_plain(q, r), exact={0, 1, 2, 3})
     zero = torch.zeros((2, 70, 3), device=cuda)
     assert int(cuda_nn.nn1_coords(zero, zero)[1].max()) == 0
     fd, fi, bd, bi = cuda_nn.nn_bidir(zero, zero)
@@ -1019,7 +1026,6 @@ def test_corr_training_steps_on_card(cuda):
 def _topk_launch(q, r, k, qpt, slices, ref_div=1):
     """nn_topk's C entry point with the queries a thread and the slice count
     forced; q (B, N, 3), r (B // ref_div, M, 3) on the card."""
-    from reart_tpu_torch.ops import _build
 
     b, n, m = q.shape[0], q.shape[1], r.shape[1]
     d = torch.empty((b, n, k), dtype=torch.float32, device=q.device)
@@ -1134,3 +1140,59 @@ def test_ball_query_unaligned_cloud(cuda, offset):
     assert torch.equal(got.cpu(), cuda_nn.ball_query_plain(
         0.3, 32, xyz.cpu(), new_xyz.cpu()))
 
+
+# ---------------------------------------------------------------------------
+# nn_bidir and nn1_coords: every route their launchers can take
+# ---------------------------------------------------------------------------
+
+def _bidir_case_card(kind):
+    rng = np.random.RandomState(len(kind))
+    src = rng.randn(2, 700, 3).astype(np.float32)
+    tgt = rng.randn(2, 1500, 3).astype(np.float32)
+    if kind == "ties":  # 13 points repeated: ties across groups and warps
+        src = np.tile(src[:, :13], (1, 54, 1))[:, :700]
+        tgt = np.tile(src[:, :13], (1, 116, 1))[:, 3:1500]
+    elif kind == "all_equal":
+        src, tgt = np.zeros_like(src), np.zeros_like(tgt)
+    elif kind == "n_above_m":
+        src, tgt = tgt[:, :1001], src[:, :333]
+    elif kind == "overflow":  # nearly every distance +inf
+        src, tgt = src * np.float32(1e20), tgt[:, :77] * np.float32(-1e20)
+    return torch.from_numpy(src), torch.from_numpy(tgt)
+
+
+@pytest.mark.parametrize("warps,run,blocks", [
+    (1, 1, 1), (2, 3, 2), (4, 16, 1), (8, 16, 3), (8, 7, 16), (1, 16, 4),
+    (8, 16, 264), (4, 5, 10 ** 6)])
+@pytest.mark.parametrize("kind", ["random", "ties", "all_equal",
+                                  "n_above_m", "overflow"])
+def test_nn_bidir_every_route(cuda, kind, warps, run, blocks):
+    src, tgt = _bidir_case_card(kind)
+    got = bench_nn.bidir_launch(_build.load_library(), src.to(cuda),
+                                tgt.to(cuda), force=(warps, run, blocks))
+    _same(got, cuda_nn.nn_bidir_plain(src, tgt), exact={0, 1, 2, 3})
+
+
+@pytest.mark.parametrize("plan", [
+    ("packed", 8, 1), ("packed", 8, 8), ("packed", 16, 3), ("packed", 32, 1),
+    ("packed", 32, 5), ("topk", 1, 1), ("topk", 1, 16),
+    ("topk", cuda_nn.NN_QPT, 4)])
+@pytest.mark.parametrize("b,n,m", [(49, 7, 8), (9, 4, 3), (17, 8, 1)])
+def test_nn1_coords_every_route(cuda, plan, b, n, m):
+    q, r = _randn(b + n, b, n, 3), _randn(m, b, m, 3)
+    r[:, -1] = r[:, 0]   # a tie with the lowest index
+    got = bench_nn.coords_launch(_build.load_library(), q.to(cuda),
+                                 r.to(cuda), plan)
+    _same(got, cuda_nn.nn1_coords_plain(q, r), exact={0, 1, 2})
+
+
+@pytest.mark.parametrize("p", [20, 7, 2])
+def test_nn1_coords_graph_stage_pairs(cuda, p):
+    # the spatial cost's (P^2, 20, 20): every ordered pair of P parts'
+    # anchors, the diagonal pairs all ties at distance 0
+    a = _randn(p, p, 20, 3)
+    q = a[:, None].expand(p, p, 20, 3).reshape(p * p, 20, 3).contiguous()
+    r = a[None].expand(p, p, 20, 3).reshape(p * p, 20, 3).contiguous()
+    assert cuda_nn.nn1_coords_plan(p * p, 20, 20, 132)[:2] == ("packed", 32)
+    _same(cuda_nn.nn1_coords(q.to(cuda), r.to(cuda)),
+          cuda_nn.nn1_coords_plain(q, r), exact={0, 1, 2})
