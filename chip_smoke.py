@@ -104,7 +104,19 @@ Phases, each of which raises on failure (exit code != 0):
  11. the real chain at full width: write_real_scene (6 OBJ frames), `corr
              --data_domain real`, the relaxation run from its SMNN anchors
              (4096 points, --downsample 4) and the projection run with
-             prismatic joints allowed; seconds and launch counts of each.
+             prismatic joints allowed; seconds and launch counts of each;
+ 12. (run after phase 8, whose files it reads) the tree search from phase
+             6's result.pkl: the default projection command (no
+             --tree_search: auto, gated), a forced sweep of 4 candidates
+             and --tree_select holdout over 3, each with the streamed
+             auction's launches in the fit stage equal to candidates x
+             short fits x --tree_search_iter + --n_iter; then the
+             offset-hinge robot from a wrong stored chain, on the card and
+             on the CPU, under both criteria: the star tree each time;
+ 13. (after 12) `--auto_cano` through `cli.main` on phase 8's table
+             sequence: a 50-iteration fit and an energy per each of the 10
+             frames, the selected frame in result.pkl; then the toy
+             robot's sweep on the card and on the CPU: the same frame.
 Phase 3 holds the banded kernel to its plain version at the sapien LAP
 ((7, 4096, 4096), w=1024) and at (9, 2048, 2048), w=512, cold and warm,
 carry off and on, and at w=128, w=M-128, B=1, B=20 and (1, 12288, 12288),
@@ -116,9 +128,12 @@ The line before the last is a JSON object of the kernels; the last line is
 """
 
 import argparse
+import contextlib
+import dataclasses
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -3243,6 +3258,323 @@ def toy_sapien_phase(dev, tmp):
         + ", ".join(f"{k} {v:.2e}" for k, v in diffs.items()))
 
 
+class _Tee:
+    """Standard output that is also kept, to read back what a run printed."""
+
+    def __init__(self):
+        self.parts = []
+
+    def write(self, text):
+        self.parts.append(text)
+        return sys.__stdout__.write(text)
+
+    def flush(self):
+        sys.__stdout__.flush()
+
+
+def printed(fn, *args, **kw):
+    """fn(*args, **kw) with its standard output shown as it goes; returns
+    (its return value, what it printed)."""
+    tee = _Tee()
+    with contextlib.redirect_stdout(tee):
+        out = fn(*args, **kw)
+    return out, "".join(tee.parts)
+
+
+# the default projection command of the tree search's runs: no
+# --tree_search flag (-1, auto), a (9, 2048, 2048) LAP every iteration
+TREE_SEARCH_PROTOCOL = ("--model kinematic --assign_iter 0 --downsample 2 "
+                        "--assign_gap 1 --assign_band 0 --num_parts 20 "
+                        "--n_iter 100")
+CANDIDATE_LINE = r"tree_search candidate (\d+):.* edges (\[.*\])"
+
+
+def _tree_search_run(dev, tmp, sample, result_path, name, extra,
+                     fits_each):
+    """One projection run from the relaxation run's result.pkl with the
+    tree search: every launch count set to 0 just before, read where the
+    fit hands over to finalize and at the end. The fit stage must launch
+    the streamed auction (candidates swept x fits_each x
+    --tree_search_iter) + --n_iter times, the energy's presolve once a
+    candidate and once in finalize; the saved tree must be the selected
+    candidate's and model.ckpt.pkl must reload."""
+    from reart_tpu_torch import checkpoint, cli
+    from reart_tpu_torch.models import KinematicModel
+    from reart_tpu_torch.profiling import phase_report, reset_phases
+
+    what = f"tree search ({name})"
+    args = robot_args(f"{TREE_SEARCH_PROTOCOL} --base_result_path "
+                      f"{result_path} {extra}", tmp)
+    save_dir = os.path.join(tmp, f"tree_search_{name}")
+    reset_phases()
+    for w in kernel_wrappers():
+        w.launches = 0
+    fit_launches = {}
+    finalize = cli.finalize
+
+    def finalize_after_reading_counts(*a, **kw):
+        torch.cuda.synchronize()
+        fit_launches.update(launch_counts())
+        return finalize(*a, **kw)
+
+    cli.finalize = finalize_after_reading_counts
+    t0 = time.perf_counter()
+    try:
+        # no device is named: the entry points take the card by themselves
+        results, out = printed(cli.run_sample, args, "robot", sample,
+                               save_dir)
+    finally:
+        cli.finalize = finalize
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+
+    for k, v in results.items():
+        if not math.isfinite(v):
+            raise AssertionError(f"{what}: {k} = {v} is not finite")
+    cands = [json.loads(e) for _, e in re.findall(CANDIDATE_LINE, out)]
+    gate = re.findall(r"tree_search auto: .*", out)
+    swept = len(cands)
+    want = swept * fits_each * args.tree_search_iter + args.n_iter
+    if fit_launches["auction_solve_resident_hbm"] != want:
+        raise AssertionError(
+            f"{what}: {fit_launches['auction_solve_resident_hbm']} launches "
+            f"of the streamed auction in the fit stage, expected {swept} "
+            f"candidates x {fits_each} x {args.tree_search_iter} + "
+            f"{args.n_iter} = {want}")
+    if launches["auction_solve_large"] != swept + 1:
+        raise AssertionError(f"{what}: {launches['auction_solve_large']} "
+                             f"presolves for {swept} candidate energies "
+                             f"and finalize's")
+    sweep_route_unused(what, launches, presolve_only=False)
+    saved = checkpoint.load_result(os.path.join(save_dir, "result.pkl"))
+    tree = sorted(map(sorted, saved["joint_connection"]))
+    if swept:
+        [sel] = re.findall(r"tree_search: selected candidate (\d+)", out)
+        if tree != sorted(map(sorted, cands[int(sel)])):
+            raise AssertionError(f"{what}: saved tree {tree} is not the "
+                                 f"selected candidate's {cands[int(sel)]}")
+    model, state = checkpoint.kinematic_model_from_checkpoint(
+        checkpoint.load_checkpoint(os.path.join(save_dir, "model.ckpt.pkl")),
+        device=dev)
+    n_parts = len(tree) + 1
+    if (not isinstance(model, KinematicModel)
+            or model.theta_list.shape != (len(sample["pc_list"]),
+                                          n_parts - 1)
+            or [list(e) for e in state.edges] != saved["joint_connection"]
+            or not all(torch.isfinite(p).all() for p in model.parameters())):
+        raise AssertionError(f"{what}: model.ckpt.pkl does not reload into "
+                             f"a finite KinematicModel with its state")
+    # the robot fits replace recon by the assignment loss from iteration 0;
+    # the holdout score's Chamfer is the fused one with coordinates
+    used = ("fps", "blend3", "nn_topk", "nn1_coords", "nn_bidir") + (
+        ("nn1_bidir_coords",) if fits_each == 2 else ())
+    for kernel in used:
+        if launches[kernel] <= 0:
+            raise AssertionError(f"{what}: {kernel} was not launched")
+    log(f"{what}: gate {gate[0] if gate else 'kept every candidate'}; "
+        f"{swept} candidate(s) swept; saved tree {saved['joint_connection']}")
+    log(f"{what}: " + ", ".join(f"{k} {v:.4f}" for k, v in results.items()))
+    log(f"{what}: {wall:.2f} s; seconds per stage "
+        + ", ".join(f"{k} {v:.3f}" for k, v in phase_report().items()))
+    log(f"{what}: kernel launches of the fit stage {fit_launches}")
+    log(f"{what}: kernel launches {launches}")
+    return launches
+
+
+HINGE_STAR = {(0, 1), (0, 2)}
+
+
+def hinge_tree_search(dev, tmp):
+    """The offset-hinge robot (its arm hinges away from the origin, so a
+    chain tree cannot express the second arm's motion) from a result.pkl
+    of GT labels and poses and the wrong chain tree, through the default
+    tree search under both criteria, on the card and on the CPU: each must
+    select the star tree."""
+    from reart_tpu_torch import checkpoint, cli
+    from reart_tpu_torch.data.synth import make_offset_hinge_sample
+
+    sample = make_offset_hinge_sample()
+    base = os.path.join(tmp, "hinge_chain_result.pkl")
+    checkpoint.save_result(base, sample["gt_cano_part"],
+                           sample["gt_pose_list"][1:], 0, [[1, 0], [2, 1]],
+                           {})
+    for select in ("energy", "holdout"):
+        args = cli.build_parser().parse_args([
+            "robot", "--model", "kinematic", "--base_result_path", base,
+            "--n_iter", "60", "--start_tau", "1", "--end_tau", "1",
+            "--tree_search_iter", "40", "--tree_select", select,
+            "--silence", "--save_root", tmp])
+        for where in ("cpu", dev):
+            save_dir = os.path.join(
+                tmp, f"hinge_{select}_{torch.device(where).type}")
+            _, out = printed(cli.run_sample, args, "robot", sample, save_dir,
+                             device=where)
+            saved = checkpoint.load_result(os.path.join(save_dir,
+                                                        "result.pkl"))
+            edges = {tuple(sorted(e)) for e in saved["joint_connection"]}
+            if edges != HINGE_STAR:
+                raise AssertionError(
+                    f"offset hinge, {select} on {where}: selected "
+                    f"{sorted(edges)}, not the star {sorted(HINGE_STAR)}")
+            log(f"tree search: offset hinge, --tree_select {select} on "
+                f"{torch.device(where).type}: the star selected from the "
+                f"chain ({len(re.findall(CANDIDATE_LINE, out))} candidates)")
+
+
+def tree_search_phase(dev, tmp, sample, result_path):
+    """The kinematic stage's tree search at full width, from the relaxation
+    run's result.pkl (the six-part table, T=10, N=4096, 20 proposals): (a)
+    the default command (no --tree_search flag: auto, gated); (b) a forced
+    sweep of 4 candidates at 50 iterations; (c) --tree_select holdout over
+    3 candidates at 30 iterations, each candidate with a second short fit
+    on its train frames; then (d) the offset-hinge robot on the card and on
+    the CPU. Returns the launch counts of (a)-(c), summed."""
+    runs = [
+        _tree_search_run(dev, tmp, sample, result_path, "default", "", 1),
+        _tree_search_run(dev, tmp, sample, result_path, "forced",
+                         "--tree_search 4 --tree_search_iter 50", 1),
+        _tree_search_run(dev, tmp, sample, result_path, "holdout",
+                         "--tree_search 3 --tree_search_iter 30 "
+                         "--tree_select holdout", 2),
+    ]
+    hinge_tree_search(dev, tmp)
+    return {k: sum(r[k] for r in runs) for k in runs[0]}
+
+
+# the relaxation run's protocol at a smaller depth, with the canonical-frame
+# sweep: 10 candidate fits of 50 iterations, the last 10 with a LAP every 5
+AUTO_CANO_PROTOCOL = ("--n_iter 100 --assign_iter 40 --num_parts 20 "
+                      "--downsample 4 --seg_refine 2 --auto_cano "
+                      "--auto_cano_iters 50")
+
+
+def toy_auto_cano(dev):
+    """The canonical-frame sweep of the toy robot on the card and on the
+    CPU, from the same initial parameters and Gumbel draws: the same frame,
+    each candidate's energy within the toy run's bar (RUN_TOL)."""
+    from reart_tpu_torch import cli, selection
+    from reart_tpu_torch.data.synth import make_toy_robot_sample
+
+    sample = make_toy_robot_sample()
+    args = robot_args("--n_iter 600 --assign_iter 400 --num_parts 5 "
+                      "--start_tau 2 --end_tau 0.5 --manual_seed 0", "exp")
+    cfg = dataclasses.replace(cli.fit_config(args),
+                              n_iter=max(100, args.n_iter // 10),
+                              use_flow_loss=False)
+    shape = (sample["cano_pc"].shape[0], args.num_parts)
+
+    def noise(it):
+        return np.random.RandomState(it).gumbel(size=shape).astype(np.float32)
+
+    runs = {}
+    for where in ("cpu", dev):
+        runs[str(where)] = selection.select_canonical_frame(
+            sample["complete_pc_list"], cfg, args.num_parts, seed=0,
+            noise=noise, verbose=False, device=where)
+    (best, card), (cpu_best, cpu) = runs[str(dev)], runs["cpu"]
+    kind, bar = RUN_TOL["total_err"]
+    diffs = {i: abs(card[i]["total_err"] - cpu[i]["total_err"])
+             / abs(cpu[i]["total_err"]) for i in cpu}
+    if best != cpu_best or card.keys() != cpu.keys() or not all(
+            d <= bar for d in diffs.values()):
+        raise AssertionError(f"auto_cano, toy robot: the card selects {best} "
+                             f"{card}, the CPU {cpu_best} {cpu}")
+    log(f"auto_cano: toy robot, frame {best} on the card and the CPU; "
+        f"energies on the card "
+        + ", ".join(f"{i}: {e['total_err']:.4f}" for i, e in card.items())
+        + f"; {kind} differences "
+        + ", ".join(f"{d:.2e}" for d in diffs.values()) + f" (bar {bar})")
+
+
+def auto_cano_phase(dev, tmp, sample, seq_dir):
+    """`--auto_cano` through the command line's `main` at full width: the
+    table sequence of phase 8 on disk, AUTO_CANO_PROTOCOL (a short fit per
+    each of the 10 frames, then the relaxation run from the selected one).
+    Every candidate's energy must be finite, the result.pkl's cano_idx the
+    printed frame, and the candidate fits must launch the resident auction
+    and fps. The sequence's GT tree rides in the sample (the card's machine
+    reads no graph.gpickle). Then the toy robot's sweep, card against
+    CPU."""
+    from reart_tpu_torch import checkpoint, cli, selection
+    from reart_tpu_torch.profiling import phase_report, reset_phases
+
+    save_root = os.path.join(tmp, "auto_cano")
+    argv = ["robot", "--use_flow_loss", "--flow_provider", "gt",
+            "--use_assign_loss", "--seq_path", seq_dir, "--save_root",
+            save_root, *AUTO_CANO_PROTOCOL.split()]
+    seen = {}
+    select = selection.select_canonical_frame
+    dataset_sample = cli.dataset_sample
+
+    def counted_select(*a, **kw):
+        before = launch_counts()
+        seen["out"] = select(*a, **kw)
+        torch.cuda.synchronize()
+        seen["launches"] = {k: v - before[k]
+                            for k, v in launch_counts().items()}
+        return seen["out"]
+
+    def with_gt_edges(*a, **kw):
+        loaded = dataset_sample(*a, **kw)
+        loaded["gt_edges"] = sample["gt_edges"]
+        return loaded
+
+    reset_phases()
+    for w in kernel_wrappers():
+        w.launches = 0
+    selection.select_canonical_frame = counted_select
+    cli.dataset_sample = with_gt_edges
+    t0 = time.perf_counter()
+    try:
+        # no device is named: the command line takes the card by itself
+        results, out = printed(cli.main, argv)
+    finally:
+        selection.select_canonical_frame = select
+        cli.dataset_sample = dataset_sample
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+
+    best, energies = seen["out"]
+    frames = sample["complete_pc_list"].shape[0]
+    [shown] = re.findall(r"auto_cano: selected frame (\d+)", out)
+    if list(energies) != list(range(frames)) or not all(
+            math.isfinite(e["total_err"]) for e in energies.values()):
+        raise AssertionError(f"auto_cano: energies {energies}")
+    saved = checkpoint.load_result(os.path.join(
+        save_root, os.path.basename(seq_dir), "result.pkl"))
+    if not int(shown) == best == saved["cano_idx"]:
+        raise AssertionError(f"auto_cano: printed frame {shown}, selected "
+                             f"{best}, result.pkl's cano_idx "
+                             f"{saved['cano_idx']}")
+    for k, v in results.items():
+        if not math.isfinite(v):
+            raise AssertionError(f"auto_cano run: {k} = {v} is not finite")
+    # a candidate fit solves a LAP at iterations 40 and 45 and builds its
+    # assignment context by 2 FPS; its energy's graph stage adds more FPS
+    if seen["launches"]["auction_solve_resident"] != 2 * frames or \
+            seen["launches"]["fps"] < 2 * frames:
+        raise AssertionError(f"auto_cano: the candidate fits launched "
+                             f"{seen['launches']}: not 2 LAPs and at least "
+                             f"2 FPS each")
+    if seen["launches"]["auction_solve_large"] != frames:
+        raise AssertionError("auto_cano: not one presolve a candidate")
+    sweep_route_unused("auto_cano run", launches, presolve_only=False)
+    log(f"auto_cano: selected frame {best}; energies "
+        + ", ".join(f"{i}: {e['total_err']:.4f}"
+                    for i, e in energies.items()))
+    log("auto_cano run: " + ", ".join(f"{k} {v:.4f}"
+                                      for k, v in results.items()))
+    log(f"auto_cano run: {wall:.2f} s; seconds per stage "
+        + ", ".join(f"{k} {v:.3f}" for k, v in phase_report().items()))
+    log(f"auto_cano: kernel launches of the candidate fits and energies "
+        f"{seen['launches']}")
+    log(f"auto_cano run: kernel launches {launches}")
+    toy_auto_cano(dev)
+    return launches
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--keep_dir", default=None,
@@ -3257,26 +3589,43 @@ def main():
 
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
-    card = device_phase()
-    build_phase()
-    stats = kernel_phase(dev)
-    reference_phase(dev)
+    seconds = {}
+
+    def timed(name, fn, *a):
+        start = time.perf_counter()
+        out = fn(*a)
+        seconds[name] = time.perf_counter() - start
+        return out
+
+    card = timed("device", device_phase)
+    timed("build", build_phase)
+    stats = timed("kernels", kernel_phase, dev)
+    timed("reference fit", reference_phase, dev)
     with tempfile.TemporaryDirectory() as tmp:
-        toy_robot_phase(dev, tmp)
-        finalize_phase(dev, tmp)
-        kinematic_check_phase(dev, tmp)
-        backbone_check_phase(dev)
-        fit_launches = fit_phase(dev)
-        run_launches, sample, result_path = run_phase(dev, tmp)
-        projection_launches = projection_run_phase(dev, tmp, sample,
-                                                   result_path)
-        corr_launches, seq_dir, norm_file, corr_path = corr_train_phase(
-            dev, tmp, sample)
-        corr_flow_launches = corr_flow_run_phase(dev, tmp, sample, seq_dir,
-                                                 norm_file, corr_path, stats)
-        toy_sapien_phase(dev, tmp)
-        sapien = sapien_chain_phase(dev, tmp, args.keep_dir)
-        real = real_chain_phase(dev, tmp)
+        timed("toy robot", toy_robot_phase, dev, tmp)
+        timed("finalize", finalize_phase, dev, tmp)
+        timed("projection check", kinematic_check_phase, dev, tmp)
+        timed("backbone check", backbone_check_phase, dev)
+        fit_launches = timed("nao fit", fit_phase, dev)
+        run_launches, sample, result_path = timed("run", run_phase, dev,
+                                                  tmp)
+        projection_launches = timed("projection run", projection_run_phase,
+                                    dev, tmp, sample, result_path)
+        corr_launches, seq_dir, norm_file, corr_path = timed(
+            "corr", corr_train_phase, dev, tmp, sample)
+        corr_flow_launches = timed("corr-flow run", corr_flow_run_phase, dev,
+                                   tmp, sample, seq_dir, norm_file,
+                                   corr_path, stats)
+        tree_search_launches = timed("tree search", tree_search_phase, dev,
+                                     tmp, sample, result_path)
+        auto_cano_launches = timed("auto_cano", auto_cano_phase, dev, tmp,
+                                   sample, seq_dir)
+        timed("toy sapien", toy_sapien_phase, dev, tmp)
+        sapien = timed("sapien chain", sapien_chain_phase, dev, tmp,
+                       args.keep_dir)
+        real = timed("real chain", real_chain_phase, dev, tmp)
+    log("seconds per phase: " + ", ".join(f"{k} {v:.1f}"
+                                          for k, v in seconds.items()))
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
     log(card)  # once more, where the end of a long log still shows it
     kernels = []
@@ -3284,10 +3633,12 @@ def main():
         st = stats[name]
         # launches: over the full-width main paths, each driven from counts
         # of 0 (robot: the relaxation run, the projection run, the corr
-        # training run, the relaxation run from corr flow; sapien: both
-        # runs; real: the corr training run and both runs)
+        # training run, the relaxation run from corr flow, the three tree
+        # search runs, the --auto_cano run; sapien: both runs; real: the
+        # corr training run and both runs)
         paths = (run_launches, projection_launches, corr_launches,
-                 corr_flow_launches, *sapien.values(), *real.values())
+                 corr_flow_launches, tree_search_launches,
+                 auto_cano_launches, *sapien.values(), *real.values())
         entry = {"name": name, "route": "cuda", "source": src,
                  "replaces": rep,
                  "launches": sum(p[name] for p in paths),
@@ -3295,6 +3646,8 @@ def main():
                  "launches_projection": projection_launches[name],
                  "launches_corr_train": corr_launches[name],
                  "launches_corr_flow_run": corr_flow_launches[name],
+                 "launches_tree_search": tree_search_launches[name],
+                 "launches_auto_cano": auto_cano_launches[name],
                  "launches_sapien_run": sapien["relaxation"][name],
                  "launches_sapien_projection": sapien["projection"][name],
                  "launches_real_corr_train": real["corr"][name],

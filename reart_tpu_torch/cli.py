@@ -32,23 +32,31 @@ are the JAX package's.
     model on clouds normalised by the canonical mesh; recon always on;
     prismatic joints allowed; the Chamfer error and the energy.
 
+The projection stage's tree comes from a sweep (`tree_search_build`): the
+MST and its cheapest edge-swap neighbours, each short-fitted and scored by
+its energy plus a fabricated-displacement veto, or by held-out frames
+(`--tree_select holdout`); by default (`--tree_search -1`) only when the MST
+is locally ambiguous. `--auto_cano` picks the canonical frame first by a
+short relaxation fit per frame (selection.py).
+
 Everything runs on the CUDA device unless `--device cpu` asks for the plain
 PyTorch versions. Tensors stay on that device; the combinatorial graph
 logic is numpy on the host. Not here yet, each raising NotImplementedError
-that names slice 5: `--tree_search` other than 0 or 1, `--batch_seq`,
-`--auto_cano`, `--snapshot_metrics` / `--snapshot_graph`, `--save_vis`
-and torch-format (zip) checkpoints. The gif/html artifacts are not written.
+that names slice 5: `--batch_seq`, `--snapshot_metrics` /
+`--snapshot_graph`, `--save_vis` and torch-format (zip) checkpoints. The
+gif/html artifacts are not written.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 
 import numpy as np
 import torch
 
-from reart_tpu_torch import resolve_device
+from reart_tpu_torch import resolve_device, to_numpy
 from reart_tpu_torch.profiling import phase_report, phase_timer
 
 
@@ -197,16 +205,42 @@ def _common_args(p: argparse.ArgumentParser, domain: str):
     p.add_argument("--merge_it", default=2 if robot else 3, type=int)
     p.add_argument("--save_root", default="exp", type=str)
     p.add_argument("--tree_search", default=-1, type=int,
-                   help="kinematic stage: energy-scored sweep over the MST "
-                        "and its edge-swap neighbours (-1 = auto); only 0 "
-                        "or 1 (off) is ported, any other value raises")
+                   help="kinematic stage: short-fit the greedy MST and its "
+                        "K-1 cheapest edge-swap spanning-tree neighbours "
+                        "and keep the best-scored tree; -1 = auto "
+                        "[default]: K=8, but only the swaps whose local "
+                        "cost delta is within --tree_search_margin of the "
+                        "median edge cost (the stored tree always joins); "
+                        "0/1 = off, the MST or the stored tree as it is")
+    p.add_argument("--tree_search_iter", default=100, type=int,
+                   help="per-candidate short-fit iterations")
+    p.add_argument("--tree_search_margin", default=0.5, type=float,
+                   help="auto mode ambiguity gate: sweep only candidates "
+                        "whose swap delta <= margin * median finite "
+                        "inter-part edge cost")
+    p.add_argument("--tree_select", default="energy",
+                   choices=["energy", "holdout"],
+                   help="tree-search ranking: 'energy' = fit energy + "
+                        "fabricated-displacement veto; 'holdout' = fit "
+                        "each candidate on a frame subset, freeze its "
+                        "screws and score reconstruction on the held-out "
+                        "frames")
+    p.add_argument("--auto_cano", action="store_true",
+                   help="select the canonical frame by a short-fit energy "
+                        "sweep over every frame before the relaxation fit")
+    p.add_argument("--auto_cano_iters", default=None, type=int,
+                   help="selection-fit iterations (default max(100, "
+                        "n_iter // 10))")
     p.add_argument("--seg_refine", default=2, type=int,
                    help="motion-consistency segmentation E-step iterations "
                         "at the end of the base stage (0 = off)")
     p.add_argument("--silence", action="store_true",
                    help="suppress per-phase prints")
-    for flag in ("--auto_cano", "--snapshot_metrics", "--snapshot_graph",
-                 "--save_vis"):
+    # the JAX package's command-line surface: accepted, no effect here
+    p.add_argument("--use_nproc", action="store_true",
+                   help="no-op (reference: multiprocessing Hungarian pool)")
+    p.add_argument("--use_cuda", default=1, type=int, help="no-op")
+    for flag in ("--snapshot_metrics", "--snapshot_graph", "--save_vis"):
         p.add_argument(flag, action="store_true",
                        help="ported in slice 5: raises")
     if robot:
@@ -588,16 +622,18 @@ def kinematic_from_tree(args, domain: str, cano_pc, seg_part, trans_list,
 
 
 def build_kinematic_from_result(args, domain: str, cano_pc, result: dict,
+                                pc_list=None, cfg=None, flow_ctx=None,
                                 device=None):
-    """The relaxation result -> (KinematicModel, KinematicState). A tree
-    stored in the result is used as stored; else the parts are merged and
-    the MST is built here (on root-aligned poses off the robot domain)."""
+    """The relaxation result -> (KinematicModel, KinematicState). Without a
+    tree stored in the result the parts are merged first. With
+    --tree_search -1 or K > 1, the observed clouds `pc_list` (T-1, N, 3),
+    the fit config `cfg` and more than two parts, the tree comes from
+    `tree_search_build` (the stored tree one of its candidates) and the
+    model from the winner's short fit; else the stored tree is used as
+    stored, or the MST is built here (on root-aligned poses off the robot
+    domain)."""
     from reart_tpu_torch.graph import merging_wrapper, mst_wrapper
 
-    if args.tree_search not in (0, 1):
-        raise NotImplementedError(
-            f"--tree_search {args.tree_search}: the energy-scored tree "
-            f"search is ported in slice 5; pass --tree_search 0")
     if args.cano_idx != result["cano_idx"]:
         raise ValueError(f"--cano_idx {args.cano_idx} is not the result's "
                          f"cano_idx {result['cano_idx']}")
@@ -612,17 +648,185 @@ def build_kinematic_from_result(args, domain: str, cano_pc, result: dict,
                 else _root_aligned(seg, trans_list))
 
     stored = np.asarray(result.get("joint_connection", ()), dtype=np.int64)
-    if stored.size:
-        joint_connection = stored
-    else:
+    stored = stored if stored.size else None
+    if stored is None:  # a stored tree comes with merged parts
         seg_part = merging_wrapper(seg_part, aligned(seg_part), cano_pc,
                                    args.merge_thr)
+
+    ts = args.tree_search
+    if ((ts > 1 or ts < 0) and pc_list is not None
+            and len(np.unique(seg_part)) > 2):  # more than one spanning tree
+        return tree_search_build(
+            args, domain, cano_pc, seg_part, trans_list,
+            torch.as_tensor(pc_list, dtype=torch.float32, device=dev), cfg,
+            flow_ctx, stored_tree=stored, device=dev)
+
+    if stored is not None:
+        joint_connection = stored
+    else:
         joint_connection = mst_wrapper(
             seg_part, aligned(seg_part), cano_pc, num_fps=20,
             cano_dist_thr=args.cano_dist_thr,
             joint_cost_weight=args.lambda_joint)
     return kinematic_from_tree(args, domain, cano_pc, seg_part, trans_list,
                                joint_connection, device=dev)
+
+
+def _axis_excess(fitted, state, cano_pc, seg, return_detail: bool = False):
+    """Mean normalised distance beyond the object's radius of each fitted
+    revolute axis from its child part's centroid: 0.0 when every axis
+    passes within the object's bounding radius. Prismatic edges are exempt
+    (their axis is a direction). float64 numpy on the host; `fitted` is
+    the KinematicModel (or anything with its axis_list, moment_list and
+    theta_list), `state` the KinematicState (its prismatic_mask and edges).
+
+    With return_detail also one record per scored revolute edge:
+    (edge_index, child, excess, theta_amp), theta_amp the fitted angle's
+    range over the frames, the canonical frame's implicit 0 included. The
+    product excess * theta_amp is the displacement a far axis fabricates:
+    what separates a translation typed as a rotation about a far axis from
+    the harmless ill-conditioned axis of a barely moving joint."""
+    axis = to_numpy(fitted.axis_list).astype(np.float64)
+    moment = to_numpy(fitted.moment_list).astype(np.float64)
+    theta = to_numpy(fitted.theta_list).astype(np.float64)
+    pris = (np.zeros(len(axis), bool) if state.prismatic_mask is None
+            else to_numpy(state.prismatic_mask).astype(bool))
+    pts = to_numpy(cano_pc).astype(np.float64)
+    center = pts.mean(0)
+    r_obj = float(np.linalg.norm(pts - center, axis=-1).max())
+    seg = to_numpy(seg)
+    exc, detail = [], []
+    for e, (child, _parent) in enumerate(np.asarray(state.edges)):
+        if pris[e]:
+            continue
+        l_vec = axis[e]
+        nl = float(np.linalg.norm(l_vec))
+        if nl < 1e-8:
+            continue
+        l_unit = l_vec / nl
+        p0 = np.cross(l_unit, moment[e] / nl)  # the axis point nearest 0
+        mask = seg == child
+        c = pts[mask].mean(0) if mask.any() else center
+        d = float(np.linalg.norm(np.cross(l_unit, c - p0)))
+        e_exc = max(0.0, d - r_obj) / max(r_obj, 1e-9)
+        exc.append(e_exc)
+        detail.append((e, int(child), e_exc,
+                       float(np.ptp(np.append(theta[:, e], 0.0)))))
+    mean = float(np.mean(exc)) if exc else 0.0
+    return (mean, detail) if return_detail else mean
+
+
+def tree_search_build(args, domain: str, cano_pc, seg_part, trans_list,
+                      pc_list, cfg, flow_ctx, stored_tree=None, device=None):
+    """Energy-scored kinematic-tree selection (--tree_search).
+
+    The candidates are the greedy MST and its K-1 cheapest 1-edge-swap
+    spanning-tree neighbours (graph.tree_candidates; K = --tree_search, 8
+    in auto mode), on root-aligned poses off the robot domain. In auto
+    mode (-1) a swap stays only if its local cost delta is at most
+    --tree_search_margin x the median finite inter-part edge cost. A stored
+    tree that is not among them is put first. With one candidate this is
+    the plain build. Otherwise each candidate is built at one path depth
+    (P-1), short-fitted for --tree_search_iter iterations with the run's
+    flow, and scored: the selection energy of its prediction plus the
+    largest fabricated displacement of its axes (_axis_excess), or under
+    --tree_select holdout the held-out-frame score alone
+    (selection.holdout_score). The first of equal scores wins; the winner
+    is rebuilt at its own depth and returned with its short fit's
+    parameters, where the full fit starts."""
+    from reart_tpu_torch import metrics as M
+    from reart_tpu_torch.graph import mst_wrapper, tree_candidates
+    from reart_tpu_torch.models.kinematic import kinematic_forward
+    from reart_tpu_torch.selection import holdout_score
+    from reart_tpu_torch.train import fit_kinematic
+
+    dev = resolve_device(device)
+    graph_trans = (trans_list if domain == "robot"
+                   else _root_aligned(seg_part, trans_list))
+    _, cost, uni = mst_wrapper(
+        seg_part, graph_trans, cano_pc, num_fps=20,
+        cano_dist_thr=args.cano_dist_thr,
+        joint_cost_weight=args.lambda_joint, return_cost=True)
+    ts = args.tree_search
+    k = ts if ts > 1 else 8  # -1 = auto mode sweeps K=8
+    cands, deltas = tree_candidates(cost, uni, k=k, return_deltas=True)
+    if ts < 0:  # auto: gate on the MST's local ambiguity
+        off = cost[~np.eye(cost.shape[0], dtype=bool)]
+        finite = off[np.isfinite(off)]
+        typical = float(np.median(finite)) if finite.size else 0.0
+        margin = args.tree_search_margin
+        keep = [i for i, d in enumerate(deltas) if d <= margin * typical]
+        if len(keep) < len(cands):
+            print(f"tree_search auto: {len(cands) - len(keep)}/"
+                  f"{len(cands) - 1} swaps above the ambiguity margin "
+                  f"({margin:g} x median edge cost {typical:.4f}) — "
+                  f"sweeping {len(keep)} candidate(s)", flush=True)
+        cands = [cands[i] for i in keep]
+        deltas = [deltas[i] for i in keep]
+    if stored_tree is not None and not any(
+            np.array_equal(np.sort(c, axis=1), np.sort(stored_tree, axis=1))
+            for c in cands):
+        cands = [stored_tree] + cands[: max(k - 1, 1)]
+        deltas = [float("nan")] + deltas[: max(k - 1, 1)]
+
+    if len(cands) == 1:  # the MST is locally unambiguous: no sweep
+        return kinematic_from_tree(args, domain, cano_pc, seg_part,
+                                   trans_list, cands[0], device=dev)
+
+    pad_depth = max(len(np.unique(seg_part)) - 1, 1)
+    short_cfg = dataclasses.replace(cfg, n_iter=args.tree_search_iter)
+    best = None
+    with phase_timer("tree_search", verbose=not args.silence):
+        for ci, cand in enumerate(cands):
+            params_i, state_i = kinematic_from_tree(
+                args, domain, cano_pc, seg_part, trans_list, cand,
+                pad_depth=pad_depth, device=dev)
+            holdout = None
+            if args.tree_select == "holdout":
+                # from the candidate's initial model, which the short fit
+                # below trains in place
+                holdout = holdout_score(params_i, state_i, short_cfg,
+                                        cano_pc, pc_list)
+            fitted, _ = fit_kinematic(params_i, state_i, short_cfg, pc_list,
+                                      flow_ctx=flow_ctx, device=dev)
+            with torch.no_grad():
+                pred_pc, seg_i, trans_i = kinematic_forward(fitted, state_i,
+                                                            cano_pc)
+            complete_pred = torch.cat(
+                [pred_pc[: args.cano_idx], cano_pc[None],
+                 pred_pc[args.cano_idx:]], 0)
+            conn = np.asarray([list(e) for e in state_i.edges])
+            energy = M.energy(pred_pc, pc_list, trans_i, conn,
+                              seg_i.cpu().numpy(),
+                              complete_pred_pc_list=complete_pred,
+                              include_group=domain == "robot")
+            # a candidate can undercut the true tree's energy by typing a
+            # relative translation as a revolute joint about a far axis;
+            # the largest fabricated displacement over its edges vetoes it
+            _, exc_detail = _axis_excess(fitted, state_i, cano_pc, seg_i,
+                                         return_detail=True)
+            fabricated = max((e_exc * th_amp for _, _, e_exc, th_amp
+                              in exc_detail), default=0.0)
+            score = (holdout if holdout is not None
+                     else energy["total_err"] + fabricated)
+            print(f"tree_search candidate {ci}: total_err "
+                  f"{energy['total_err']:.4f}"
+                  + (f" fabricated {fabricated:.3f}" if fabricated else "")
+                  + (f" holdout {holdout:.5f}" if holdout is not None
+                     else "")
+                  + f" local_delta {deltas[ci]:.4f} edges {conn.tolist()}",
+                  flush=True)
+            if best is None or score < best[0]:
+                best = (score, ci, fitted, cand, energy["total_err"])
+
+    _, ci, fitted, cand, err = best
+    print(f"tree_search: selected candidate {ci} (total_err {err:.4f})",
+          flush=True)
+    # the winner at its own path depth (the parameters do not depend on
+    # it); the full fit starts from its short fit
+    _, state = kinematic_from_tree(args, domain, cano_pc, seg_part,
+                                   trans_list, cand, device=dev)
+    return fitted, state
 
 
 # ---------------------------------------------------------------------------
@@ -814,10 +1018,12 @@ def finalize(args, domain: str, sample, seg_part, trans_list, params, state,
 # main
 # ---------------------------------------------------------------------------
 
-def _load_model(args, cano_pc, pose_len: int, dev):
+def _load_model(args, cano_pc, pc_list, cfg, flow_ctx, dev):
     """(params, state, tau) at the start of the run: a fresh BaseModel, the
-    kinematic model built from --base_result_path, or either model from
-    the pickle checkpoint --resume names (state is None for a base model)."""
+    kinematic model built from --base_result_path (with the tree search,
+    which short-fits on pc_list with cfg and flow_ctx), or either model
+    from the pickle checkpoint --resume names (state is None for a base
+    model)."""
     from reart_tpu_torch import checkpoint as ckpt
     from reart_tpu_torch.models.base_model import BaseModel
 
@@ -834,7 +1040,7 @@ def _load_model(args, cano_pc, pose_len: int, dev):
             return (ckpt.base_model_from_checkpoint(payload, device=dev),
                     None, payload["tau"])
         params = BaseModel(
-            args.num_parts, pose_len, device=dev,
+            args.num_parts, pc_list.shape[0], device=dev,
             generator=torch.Generator().manual_seed(args.manual_seed))
         return params, None, args.end_tau
     if payload is not None:
@@ -846,7 +1052,7 @@ def _load_model(args, cano_pc, pose_len: int, dev):
                          "relaxation run's result.pkl) or --resume")
     params, state = build_kinematic_from_result(
         args, args.domain, cano_pc, ckpt.load_result(args.base_result_path),
-        device=dev)
+        pc_list=pc_list, cfg=cfg, flow_ctx=flow_ctx, device=dev)
     return params, state, args.end_tau
 
 
@@ -858,7 +1064,9 @@ def run_sample(args, domain: str, sample, save_dir: str, device=None,
     reart_tpu_torch/data/synth.py). `noise(it)` -> (N, P) Gumbel draw of
     iteration `it` of the base fit; by default drawn on the device from
     --manual_seed. The fit leaves its resume file (`fit_state.pkl`) in
-    `save_dir` while it runs. Returns finalize's results."""
+    `save_dir` while it runs. The kinematic stage's tree search runs here;
+    --auto_cano is `main`'s, which picks the canonical frame before it
+    loads the sample. Returns finalize's results."""
     from reart_tpu_torch.models.base_model import base_forward, gumbel_noise
     from reart_tpu_torch.models.kinematic import kinematic_forward
     from reart_tpu_torch.train import fit_base, fit_kinematic
@@ -872,7 +1080,8 @@ def run_sample(args, domain: str, sample, save_dir: str, device=None,
                               device=dev)
     flow_ctx = setup_flow(args, sample, dev, domain)
     cfg = fit_config(args, domain)
-    params, state, tau = _load_model(args, cano_pc, pc_list.shape[0], dev)
+    params, state, tau = _load_model(args, cano_pc, pc_list, cfg, flow_ctx,
+                                     dev)
     shape = (cano_pc.shape[0], args.num_parts)
 
     if not args.evaluate:
@@ -914,13 +1123,13 @@ def run_sample(args, domain: str, sample, save_dir: str, device=None,
 
 def _not_ported_flags(args) -> None:
     """Raise for a flag whose feature is ported in slice 5."""
-    on = [f"--{k}" for k in ("auto_cano", "snapshot_metrics",
-                             "snapshot_graph", "save_vis", "batch_seq")
+    on = [f"--{k}" for k in ("snapshot_metrics", "snapshot_graph",
+                             "save_vis", "batch_seq")
           if getattr(args, k, None)]
     if on:
         raise NotImplementedError(
-            f"{', '.join(on)}: ported in slice 5 (canonical-frame "
-            f"selection, mid-fit snapshots, artifacts, batched sequences)")
+            f"{', '.join(on)}: ported in slice 5 (mid-fit snapshots, "
+            f"artifacts, batched sequences)")
 
 
 def main(argv=None):
@@ -934,6 +1143,23 @@ def main(argv=None):
     sapien = args.domain == "sapien"
     idx = args.sapien_idx if sapien else 0
     sample = dataset_sample(load_dataset(args), idx)
+    if args.auto_cano and args.model == "base" and not args.evaluate:
+        from reart_tpu_torch.selection import select_canonical_frame
+
+        sel_cfg = dataclasses.replace(
+            fit_config(args),
+            n_iter=args.auto_cano_iters or max(100, args.n_iter // 10),
+            use_flow_loss=False)
+        with phase_timer("auto_cano", verbose=not args.silence):
+            best, energies = select_canonical_frame(
+                sample["complete_pc_list"], sel_cfg, args.num_parts,
+                include_group=args.domain == "robot", seed=args.manual_seed,
+                device=device)
+        print(f"auto_cano: selected frame {best} (energies "
+              f"{[round(e['total_err'], 3) for e in energies.values()]})",
+              flush=True)
+        args.cano_idx = best
+        sample = dataset_sample(load_dataset(args), idx)
     seq_name = str(idx) if sapien else args.seq_path.rstrip("/").split("/")[-1]
     results = run_sample(args, args.domain, sample,
                          os.path.join(args.save_root, seq_name), device)

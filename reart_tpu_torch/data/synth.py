@@ -5,7 +5,9 @@
 `make_robot_sample` builds the six-part table of reart_tpu/data/synth.py
 (static body, lid, drawer, door, slider tray, top flap: three revolute and
 two prismatic joints) in the world frame; `make_toy_robot_sample` the
-three-part robot of the command-line tests (a base and two hinged arms).
+three-part robot of the command-line tests (a base and two hinged arms);
+`make_offset_hinge_sample` the tree search's three-part robot, whose arm
+hinges sit away from the origin.
 
 A sample also carries what inverse kinematics reads off a RobotSequence,
 in its form: `pose_list` (per frame {part: 4x4 world pose}, frame 0 the
@@ -194,6 +196,29 @@ def make_toy_robot_sample(n_per: int = 120, n_frames: int = 4,
     return robot_sample(clouds, [part_id] * n_frames, poses,
                         [(1, 0), (2, 0)], cano_idx,
                         [poses_at(1.5), poses_at(n_frames + 0.5)])
+
+
+def make_offset_hinge_sample(n_per: int = 120, n_frames: int = 4,
+                             seed: int = 3, cano_idx: int = 0) -> dict:
+    """A body and two arms whose z hinges sit at x = -/+0.45, away from the
+    origin: a chain tree (one arm under the other) would have to express
+    the second arm's motion through the first arm's screw, which no fixed
+    screw can, so the topology matters. Arms are children of the body."""
+    rs = np.random.RandomState(seed)
+    body = rs.uniform([-0.3, -0.4, -0.15], [0.3, 0.4, 0.15], (n_per, 3))
+    arm_l = rs.uniform([-1.0, 0.1, -0.1], [-0.45, 0.35, 0.1], (n_per, 3))
+    arm_r = rs.uniform([0.45, 0.1, -0.1], [1.0, 0.35, 0.1], (n_per, 3))
+    cano = np.concatenate([body, arm_l, arm_r])
+    part_id = np.repeat([0, 1, 2], n_per)
+
+    def poses_at(i):
+        return {0: np.eye(4), 1: _pivot_rotz(0.3 * i, (-0.45, 0.2, 0.0)),
+                2: _pivot_rotz(-0.25 * i, (0.45, 0.2, 0.0))}
+
+    poses = [poses_at(i) for i in range(n_frames)]
+    clouds = [_carry(cano, part_id, pose) for pose in poses]
+    return robot_sample(clouds, [part_id] * n_frames, poses,
+                        [(1, 0), (2, 0)], cano_idx, [poses_at(5)])
 
 
 def write_robot_sequence(seq_dir: str, sample: dict) -> None:

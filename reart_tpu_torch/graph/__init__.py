@@ -29,5 +29,6 @@ from reart_tpu_torch.graph.mst import (
     merging_wrapper,
     mst,
     mst_wrapper,
+    tree_candidates,
 )
 from reart_tpu_torch.graph.ted import compute_ted, find_root_node

@@ -290,3 +290,76 @@ def mst_wrapper(seg_part, trans, cano_pc, verbose: bool = False,
     if return_cost:
         return edges, cost, uni_label
     return edges
+
+
+def _tree_path(edges, p: int, u: int, v: int) -> list:
+    """The nodes of the unique u-v path of a tree over parts 0..p-1, from u
+    to v (what networkx.shortest_path returns on a tree)."""
+    nbrs = {n: [] for n in range(p)}
+    for a, b in edges:
+        nbrs[int(a)].append(int(b))
+        nbrs[int(b)].append(int(a))
+    parent, stack = {u: None}, [u]
+    while stack:
+        n = stack.pop()
+        for m in nbrs[n]:
+            if m not in parent:
+                parent[m] = n
+                stack.append(m)
+    path = [v]
+    while path[-1] != u:
+        path.append(parent[path[-1]])
+    return path[::-1]
+
+
+def tree_candidates(cost, uni_label=None, k: int = 8,
+                    return_deltas: bool = False):
+    """The greedy MST plus its cheapest 1-edge-swap spanning-tree
+    neighbours. For every non-tree pair (u, v) ascending and every edge
+    (a, b) of the tree's u-v path, from u to v, the swap removes (a, b) and
+    inserts (u, v) in its cheaper orientation; swaps are ranked by their
+    local cost delta sym[u, v] - sym[a, b] (a stable sort: equal deltas keep
+    that enumeration order) and deduplicated as edge sets.
+
+    Returns a list of at most `k` (P-1, 2) int64 edge arrays (labels from
+    `uni_label`), the MST first; with `return_deltas` also each one's delta
+    (0.0 for the MST). numpy on the host, float64."""
+    cost = np.asarray(cost, dtype=np.float64)
+    p = cost.shape[0]
+    base = mst(cost, uni_label=None, keep_index=True)
+    deltas = [0.0]
+    if p <= 2 or len(base) < p - 1:
+        out = [base]
+    else:
+        sym = np.minimum(cost, cost.T)
+        in_tree = {frozenset((int(a), int(b))) for a, b in base}
+        swaps = []  # (delta, out_edge, in_pair): every path edge is a swap
+        for u in range(p):
+            for v in range(u + 1, p):
+                if frozenset((u, v)) in in_tree:
+                    continue
+                path = _tree_path(base, p, u, v)
+                for a, b in zip(path[:-1], path[1:]):
+                    swaps.append((sym[u, v] - sym[a, b], (a, b), (u, v)))
+        swaps.sort(key=lambda s: s[0])
+
+        out, seen = [base], {frozenset(map(tuple, np.sort(base, axis=1)))}
+        for delta, (a, b), (u, v) in swaps:
+            if len(out) >= k:
+                break
+            edges = [e for e in base.tolist()
+                     if {int(e[0]), int(e[1])} != {a, b}]
+            edges.append([u, v] if cost[u, v] <= cost[v, u] else [v, u])
+            arr = np.asarray(edges, dtype=np.int64)
+            key = frozenset(map(tuple, np.sort(arr, axis=1)))
+            if key in seen:
+                continue
+            seen.add(key)
+            out.append(arr)
+            deltas.append(float(delta))
+    if uni_label is not None:
+        uni_label = np.asarray(uni_label)
+        out = [uni_label[t] for t in out]
+    if return_deltas:
+        return out, deltas
+    return out

@@ -205,16 +205,18 @@ def test_parts_not_ported_yet_say_so(tmp_path):
     args = cli.build_parser().parse_args(base + ["--model", "kinematic"])
     with pytest.raises(ValueError, match="base_result_path"):
         cli.run_sample(args, "robot", sample, str(tmp_path), device="cpu")
-    # the tree search: the JAX package's default (-1, auto) is not ported
+    # the tree search is ported (slice 5a): at the JAX package's default
+    # (-1, auto) and at K > 1 it needs the observed clouds; without them
+    # the stored tree is built as it is
     assert args.tree_search == -1
     result = {"cano_idx": 0, "pred_cano_part": sample["gt_cano_part"],
               "pred_pose_list": sample["gt_pose_list"][1:],
               "joint_connection": [[1, 0], [2, 0]]}
     for ts in (-1, 8):
         args.tree_search = ts
-        with pytest.raises(NotImplementedError, match="slice 5"):
-            cli.build_kinematic_from_result(args, "robot", sample["cano_pc"],
-                                            result, device="cpu")
+        _, state = cli.build_kinematic_from_result(
+            args, "robot", sample["cano_pc"], result, device="cpu")
+        assert {tuple(sorted(e)) for e in state.edges} == {(0, 1), (0, 2)}
     # a torch-format (zip) checkpoint
     zipped = str(tmp_path / "model.pth.tar")
     torch.save({"state_dict": {}}, zipped)
@@ -224,7 +226,7 @@ def test_parts_not_ported_yet_say_so(tmp_path):
     # the flags of slice 5, in every domain
     args = cli.build_parser().parse_args(base)
     assert cli.setup_flow(args, sample, "cpu") is None
-    for domain, flag in (("robot", ["--auto_cano"]),
+    for domain, flag in (("robot", ["--snapshot_graph"]),
                          ("real", ["--snapshot_metrics"]),
                          ("robot", ["--save_vis"]),
                          ("sapien", ["--batch_seq", "0,1"])):
@@ -478,7 +480,7 @@ def test_command_line_imports_no_jax_and_defaults_to_the_card():
         "reart_tpu_torch.models.pointnet2, reart_tpu_torch.train.corr, "
         "reart_tpu_torch.interop, reart_tpu_torch.sapien_eval, "
         "reart_tpu_torch.data.sapien, reart_tpu_torch.data.real, "
-        "reart_tpu_torch.data.mesh; "
+        "reart_tpu_torch.data.mesh, reart_tpu_torch.selection; "
         "bad = [m for m in ('jax', 'optax', 'reart_tpu', 'networkx') "
         "if m in sys.modules]; assert not bad, bad; "
         "args = reart_tpu_torch.cli.build_parser().parse_args(['robot']); "
