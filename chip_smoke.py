@@ -117,6 +117,26 @@ Phases, each of which raises on failure (exit code != 0):
              sequence: a 50-iteration fit and an energy per each of the 10
              frames, the selected frame in result.pkl; then the toy
              robot's sweep on the card and on the CPU: the same frame.
+  A. (after 13) the same sweep as one rows fit, select_canonical_frame(...,
+             batched=True) on phase 13's inputs: nn1_bidir_coords (90,
+             4096, 4096), fps (90 | 10, 4096) -> 1024 and the resident
+             auction (90, 1024, 1024) exact against their plain versions,
+             then the same frame and energies within BATCHED_RTOL, the
+             rows fits' seconds against the sequential fits';
+  B. (after 10) `sapien --batch_seq 0,1,2` through `cli.main` on three
+             full-width scenes (8 views x 4096 points, 6 parts, each its
+             seed, rates and flow file): result files for each, scene 0
+             against phase 10's run within BATCH_SEQ_TOL and against its
+             sequential run without the band guard within SAPIEN_RUN_TOL;
+             the banded auction (21, 4096, 4096) and blend3 at B = 21
+             exact against their plain versions;
+  C. (last) phase 6's run with --snapshot_graph --snapshot_gap 100
+             --trace_dir: result.pkl bit-equal to phase 6's, three snapshot
+             rows, the trace naming the Chamfer kernel; phases 6's and 7's
+             models as torch-format checkpoints, `--resume` of each giving
+             the numbers of its model.ckpt.pkl.
+After the card's name, a "viz probe" line says whether matplotlib, imageio
+and PIL import on this machine (reported, not checked).
 Phase 3 holds the banded kernel to its plain version at the sapien LAP
 ((7, 4096, 4096), w=1024) and at (9, 2048, 2048), w=512, cold and warm,
 carry off and on, and at w=128, w=M-128, B=1, B=20 and (1, 12288, 12288),
@@ -3088,7 +3108,7 @@ def sapien_chain_phase(dev, tmp, keep_dir=None):
         os.path.join(tmp, "sapien_kin", "0", "model.ckpt.pkl"))
     log(f"sapien projection run: joints {_joint_types(payload)}, root "
         f"trajectory {payload['has_root_trans']}")
-    return {k: v[1] for k, v in out.items()}
+    return {k: v[1] for k, v in out.items()}, out["relaxation"][0]
 
 
 def real_chain_phase(dev, tmp):
@@ -3509,8 +3529,11 @@ def auto_cano_phase(dev, tmp, sample, seq_dir):
 
     def counted_select(*a, **kw):
         before = launch_counts()
-        seen["out"] = select(*a, **kw)
-        torch.cuda.synchronize()
+        seen["call"] = (a, kw)  # phase A sweeps the same inputs batched
+        with timed_energies() as energy_s:
+            seen["out"] = select(*a, **kw)
+            torch.cuda.synchronize()
+        seen["energy_s"] = energy_s
         seen["launches"] = {k: v - before[k]
                             for k, v in launch_counts().items()}
         return seen["out"]
@@ -3571,7 +3594,480 @@ def auto_cano_phase(dev, tmp, sample, seq_dir):
     log(f"auto_cano: kernel launches of the candidate fits and energies "
         f"{seen['launches']}")
     log(f"auto_cano run: kernel launches {launches}")
+    seen["stage_s"] = phase_report()["auto_cano"]
     toy_auto_cano(dev)
+    return launches, seen
+
+
+@contextlib.contextmanager
+def timed_energies():
+    """Seconds of every selection.fit_energy call inside the block, summed
+    into the yielded list's one entry (the card's work waited for)."""
+    from reart_tpu_torch import selection
+
+    total = [0.0]
+    energy = selection.fit_energy
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = energy(*a, **kw)
+        torch.cuda.synchronize()
+        total[0] += time.perf_counter() - t0
+        return out
+
+    selection.fit_energy = timed
+    try:
+        yield total
+    finally:
+        selection.fit_energy = energy
+
+
+def viz_probe():
+    """Whether the packages of the JAX package's viz.py import on this
+    machine: evidence for the port of the gif/html artifacts. A missing
+    package is reported, not a failure."""
+    import importlib
+
+    found = []
+    for name in ("matplotlib", "imageio", "PIL"):
+        try:
+            mod = importlib.import_module(name)
+            found.append(f"{name} {getattr(mod, '__version__', '?')}")
+        except ImportError as e:
+            found.append(f"{name} absent ({e})")
+    log("viz probe: " + ", ".join(found))
+
+
+def hold_batched(stats, name, label, got, ref, kernel_ms, plain_ms,
+                 bound_=None):
+    """A kernel at a shape of the batched paths against its plain version,
+    every output exact; its ms go to the kernel's other shapes."""
+    err = check(f"{name} {label}", got, ref, exact=set(range(len(got))))
+    if err != 0.0:
+        raise AssertionError(f"{name} {label}: max_abs_err {err}, not 0")
+    st = stats[name]
+    st["max_abs_err"] = max(st["max_abs_err"], err)
+    key = "ms_" + re.sub(r"[^0-9a-z]+", "_", label.lower()).strip("_")
+    st[key] = kernel_ms
+    log(f"{name} {label}: every output exact (max_abs_err 0); kernel "
+        f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms"
+        + ("" if bound_ is None else
+           f", bound {bound_['bound_ms']:.5f} ms by {bound_['bound_by']}"))
+
+
+# the batched sweep's energies against the sequential sweep's: each row of
+# the rows fit runs the sequential fit's own products and the kernels are
+# exact per element, so the energies should be equal to the last bit. From
+# the identity start any ulp becomes a +-lr step of the seg MLP, which
+# ROADMAP.md §3 item 23 records as 5% in the energy after 40 iterations
+# between two implementations (and batched products parted one candidate
+# by 60%, item 27): a difference past 5% is a different fit
+BATCHED_RTOL = 5e-2
+
+
+def batched_candidates_phase(dev, stats, seq_sweep):
+    """Phase A: the candidate sweep of phase 13 (the table sequence, 10
+    frames x 4096 points x 20 parts, AUTO_CANO_PROTOCOL's selection fits)
+    as one rows fit, `select_canonical_frame(..., batched=True)` on the
+    same inputs; nn1_bidir_coords (90, 4096, 4096), fps (90, 4096) and
+    (10, 4096) -> 1024 and the resident auction (90, 1024, 1024) against
+    their plain versions; then the same frame, each candidate's total_err
+    within BATCHED_RTOL of phase 13's, and the seconds of the rows fits
+    against the sequential fits (each stage less its energies)."""
+    from reart_tpu_torch import parallel, selection
+
+    a, kw = seq_sweep["call"]
+    seq_best, seq_energies = seq_sweep["out"]
+    fit_s = {}
+    fit_rows = parallel.fit_base_candidates
+
+    def timed_rows(*fa, **fkw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fit_rows(*fa, **fkw)
+        torch.cuda.synchronize()
+        fit_s["rows"] = time.perf_counter() - t0
+        return out
+
+    for w in kernel_wrappers():
+        w.launches = 0
+    parallel.fit_base_candidates = timed_rows
+    t0 = time.perf_counter()
+    try:
+        with timed_energies() as energy_s:
+            best, energies = selection.select_canonical_frame(
+                *a, **{**kw, "batched": True})
+            torch.cuda.synchronize()
+    finally:
+        parallel.fit_base_candidates = fit_rows
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    # the kernels first: a kernel wrong at a batched shape shows as itself
+    batched_candidate_kernels(dev, stats, a[0])
+    diffs = {i: abs(energies[i]["total_err"] - e["total_err"])
+             / abs(e["total_err"]) for i, e in seq_energies.items()}
+    if best != seq_best or list(energies) != list(seq_energies) or not all(
+            d <= BATCHED_RTOL for d in diffs.values()):
+        raise AssertionError(
+            f"batched candidates: frame {best}, energies "
+            f"{ {i: e['total_err'] for i, e in energies.items()} }; the "
+            f"sequential sweep frame {seq_best}, energies "
+            f"{ {i: e['total_err'] for i, e in seq_energies.items()} }")
+    seq_fits = seq_sweep["stage_s"] - seq_sweep["energy_s"][0]
+    log(f"batched candidates: frame {best}, as the sequential sweep; "
+        "energies " + ", ".join(f"{i}: {e['total_err']:.4f}"
+                                for i, e in energies.items())
+        + "; relative differences to the sequential sweep "
+        + ", ".join(f"{d:.2e}" for d in diffs.values())
+        + f" (bar {BATCHED_RTOL}; "
+        + ("equal to the last bit)" if energies == seq_energies
+           else "not equal to the last bit)"))
+    log(f"batched candidates: the rows fits {fit_s['rows']:.2f} s "
+        f"(the sweep {wall:.2f} s less its energies "
+        f"{energy_s[0]:.2f} s: {wall - energy_s[0]:.2f} s) against the "
+        f"sequential fits {seq_fits:.2f} s (phase 13's auto_cano stage "
+        f"{seq_sweep['stage_s']:.2f} s less its energies "
+        f"{seq_sweep['energy_s'][0]:.2f} s)")
+    log(f"batched candidates: kernel launches {launches}")
+    for name in ("nn1_bidir_coords", "fps", "auction_solve_resident"):
+        if launches[name] <= 0:
+            raise AssertionError(f"batched candidates: {name} not launched")
+    # the rows fit's LAPs: one (90, 1024, 1024) launch at iterations 40
+    # and 45, where the sequential sweep launched 2 a candidate
+    if launches["auction_solve_resident"] != 2:
+        raise AssertionError(f"batched candidates: "
+                             f"{launches['auction_solve_resident']} launches "
+                             f"of the resident auction, not 2")
+    sweep_route_unused("batched candidates", launches, presolve_only=False)
+
+    return launches
+
+
+def batched_candidate_kernels(dev, stats, complete):
+    """Phase A's kernels at the rows fit's shapes, on the sweep's own
+    clouds: nn1_bidir_coords (90, 4096, 4096), fps (90, 4096) and (10,
+    4096) -> 1024, the resident auction (90, 1024, 1024) cold and warm."""
+    from reart_tpu_torch.bench_nn import PAIR_FLOPS, bound
+    from reart_tpu_torch.ops import cuda_auction, cuda_fps, cuda_nn
+    from reart_tpu_torch.ops.distance import pairwise_sqdist
+
+    complete = torch.as_tensor(np.asarray(complete), dtype=torch.float32,
+                               device=dev)
+    t, n = complete.shape[:2]
+    k = n // 4  # the selection fits' --downsample 4
+    cano_b = complete.contiguous()                       # (10, 4096, 3)
+    pc_b = torch.stack([torch.cat([complete[:i], complete[i + 1:]])
+                        for i in range(t)]).reshape(-1, n, 3)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    src = (pc_b + 0.01 * torch.randn(pc_b.shape, generator=gen,
+                                     device=dev)).contiguous()
+    got = cuda_nn.nn1_bidir_coords(src, pc_b)
+    hold_batched(stats, "nn1_bidir_coords", f"({len(src)}, {n}, {n})", got,
+                 cuda_nn.nn1_bidir_coords_plain(src, pc_b),
+                 many_ms(lambda: cuda_nn.nn1_bidir_coords(src, pc_b), 10, 3),
+                 median_ms(lambda: cuda_nn.nn1_bidir_coords_plain(src, pc_b),
+                           1),
+                 bound(PAIR_FLOPS * len(src) * n * n, (src, pc_b, *got)))
+    for x in (pc_b, cano_b):
+        ones = torch.ones(x.shape[:2], dtype=torch.bool, device=dev)
+        got = cuda_fps.fps(x, ones, k)
+        hold_batched(stats, "fps", f"({len(x)}, {n}) -> {k}", (got,),
+                     (cuda_fps.fps_plain(x, ones, k),),
+                     many_ms(lambda: cuda_fps.fps(x, ones, k), 3, 3),
+                     median_ms(lambda: cuda_fps.fps_plain(x, ones, k), 1),
+                     bound((PAIR_FLOPS + 2) * len(x) * k * n,
+                           (x, ones, got)))
+    idx = cuda_fps.fps(pc_b, torch.ones(pc_b.shape[:2], dtype=torch.bool,
+                                        device=dev), k)
+    tgt = gather_points(pc_b, idx)
+    perm = torch.randperm(k, generator=gen, device=dev)
+    moved = tgt[:, perm] + 0.05 * torch.randn(tgt.shape, generator=gen,
+                                              device=dev)
+    benefit = (-torch.sqrt(pairwise_sqdist(moved, tgt))).contiguous()
+    eps = (5e-3, 1e-4)  # the fit's schedule: eps_min 1e-4, 2 scales, x50
+    zero = torch.zeros((benefit.shape[0], k), device=dev)
+    cold = cuda_auction.auction_solve_resident(benefit, zero, eps, 100)
+    benefit2 = (-torch.sqrt(pairwise_sqdist(
+        moved + 0.002 * torch.randn(tgt.shape, generator=gen, device=dev),
+        tgt))).contiguous()
+    warm_price = cold[1].contiguous()
+    shape = f"({len(benefit)}, {k}, {k})"
+    for label, bm, p in ((f"{shape} cold", benefit, zero),
+                         (f"{shape} warm", benefit2, warm_price)):
+        got = cuda_auction.auction_solve_resident(bm, p, eps, 100)
+        torch.cuda.synchronize()
+        hold_batched(stats, "auction_solve_resident", label, got,
+                     cuda_auction.auction_solve_resident_plain(bm, p, eps,
+                                                               100),
+                     graph_ms(lambda: cuda_auction.auction_solve_resident(
+                         bm, p, eps, 100), 10),
+                     median_ms(lambda: cuda_auction
+                               .auction_solve_resident_plain(bm, p, eps,
+                                                             100), 1),
+                     bound(2 * len(eps) * bm.numel(), (bm, p, *got)))
+    # the first 9 elements of the warm problem alone: the time of these
+    # inputs at phase 3's batch, apart from the count of elements
+    bm9, p9 = benefit2[:9].contiguous(), warm_price[:9].contiguous()
+    stats["auction_solve_resident"]["ms_first_9_of_warm"] = graph_ms(
+        lambda: cuda_auction.auction_solve_resident(bm9, p9, eps, 100), 10)
+    log(f"auction_solve_resident ({len(bm9)}, {k}, {k}) warm, the first 9 "
+        f"elements of the batched problem: "
+        f"{stats['auction_solve_resident']['ms_first_9_of_warm']:.4f} ms")
+
+
+def batch_seq_phase(dev, tmp, stats, sequential):
+    """Phase B: `sapien --batch_seq 0,1,2` through `cli.main` under
+    SAPIEN_PROTOCOL on three different full-width scenes under one root (8
+    views x 4096 points, 6 parts; scene k drawn from seed k with its joints
+    at 1 + 0.15 k times the table's rates, each with its flow file): one
+    rows fit of (21, 4096, 4096) LAPs, banded with no guard, then three
+    finalizes. Each sequence writes result.txt and result.pkl. Scene 0 is
+    phase 10's scene: its numbers against phase 10's run (which has the
+    band guard) within BATCH_SEQ_TOL, and against a sequential run of scene
+    0 without the guard (the rows' arithmetic) within SAPIEN_RUN_TOL. Then
+    the banded auction at (21, 4096, 4096) and blend3 at B = 21 against
+    their plain versions."""
+    from reart_tpu_torch import checkpoint, cli
+    from reart_tpu_torch.bench_nn import PAIR_FLOPS, bound
+    from reart_tpu_torch.data.sapien import SapienDataset
+    from reart_tpu_torch.data.synth import make_sapien_scene
+    from reart_tpu_torch.ops import cuda_auction, cuda_nn
+    from reart_tpu_torch.ops.assignment import _curve_sort
+    from reart_tpu_torch.profiling import phase_report, reset_phases
+
+    root = make_sapien_scene(os.path.join(tmp, "sapien_batch"), n_views=8,
+                             n_points=4096, n_parts=6, n_scenes=3)
+    save_root = os.path.join(tmp, "sapien_batch_out")
+    argv = ["sapien", "--sapien_base_folder", root, "--batch_seq", "0,1,2",
+            "--flow_file", os.path.join(root, "flow_{idx}.npz"),
+            "--save_root", save_root, *SAPIEN_PROTOCOL.split()]
+    reset_phases()
+    for w in kernel_wrappers():
+        w.launches = 0
+    t0 = time.perf_counter()
+    # no device is named: the command line takes the card by itself
+    results = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    seconds = phase_report()
+    if len(results) != 3:
+        raise AssertionError(f"batch_seq: {len(results)} results")
+    for i, res in enumerate(results):
+        save_dir = os.path.join(save_root, str(i))
+        for name in ("result.txt", "result.pkl", "model.ckpt.pkl"):
+            if not os.path.exists(os.path.join(save_dir, name)):
+                raise AssertionError(f"batch_seq: sequence {i} wrote no "
+                                     f"{name}")
+        for k, v in res.items():
+            if not math.isfinite(v):
+                raise AssertionError(f"batch_seq {i}: {k} = {v}")
+        if read_result_txt(os.path.join(save_dir, "result.txt")).keys() \
+                != res.keys():
+            raise AssertionError(f"batch_seq {i}: result.txt does not list "
+                                 f"the results")
+        saved = checkpoint.load_result(os.path.join(save_dir, "result.pkl"))
+        log(f"batch_seq: sequence {i}, edges {saved['joint_connection']}: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in res.items()))
+    if results[1] == results[0] or results[2] == results[0]:
+        raise AssertionError("batch_seq: two scenes gave equal results")
+    log(f"batch_seq: {wall:.2f} s; seconds per stage "
+        + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items()))
+    log(f"batch_seq: kernel launches {launches}")
+    # every LAP of the rows fit is banded (no guard): 20, plus the 3
+    # energies' presolves on the large kernel
+    if launches["auction_solve_banded"] != 20 or \
+            launches["auction_solve_large"] != 3:
+        raise AssertionError("batch_seq: not 20 banded LAPs and 3 presolves")
+    for name in ("nn1_bidir_coords", "blend3", "fps"):
+        if launches[name] <= 0:
+            raise AssertionError(f"batch_seq: {name} not launched")
+    sweep_route_unused("batch_seq", launches, presolve_only=False)
+
+    diffs = within(results[0], sequential, BATCH_SEQ_TOL,
+                   "batch_seq scene 0 against phase 10's run")
+    log("batch_seq: scene 0 against phase 10's run (band guard on): "
+        + ", ".join(f"{k} {v:.2e}" for k, v in diffs.items()))
+    args = cli.build_parser().parse_args(
+        ["sapien", "--sapien_base_folder", root, "--sapien_idx", "0",
+         "--flow_file", os.path.join(root, "flow_0.npz"), "--save_root",
+         os.path.join(tmp, "sapien_noguard"), *SAPIEN_PROTOCOL.split(),
+         "--assign_band_guard", "0"])
+    sample = cli.dataset_sample(cli.load_dataset(args), 0)
+    noguard, ng_launches, _, _ = _drive(
+        args, "sapien", sample, os.path.join(tmp, "sapien_noguard", "0"),
+        "sapien relaxation run of scene 0, no band guard")
+    diffs = within(results[0], noguard, SAPIEN_RUN_TOL,
+                   "batch_seq scene 0 against its sequential run without "
+                   "the guard")
+    log("batch_seq: scene 0 against its sequential run without the guard: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in diffs.items())
+        + ("; equal" if noguard == results[0] else ""))
+
+    # the kernels at the rows fit's shapes, on the three scenes
+    scenes = [SapienDataset(root)[k] for k in range(3)]
+    rng = np.random.RandomState(5)
+    gt = np.concatenate([s["gt_pc_list"] for s in scenes])
+    obs = np.concatenate([s["pc_list"] for s in scenes])
+    b, n = obs.shape[:2]
+    w = min(1024, n // 2)  # the fit's auto band at n = 4096
+    src = gt + 0.02 * rng.randn(*gt.shape).astype(np.float32)
+    s_src, s_tgt, _, _ = _curve_sort(torch.from_numpy(src).to(dev),
+                                     torch.from_numpy(obs).to(dev), w, None)
+    s_src, s_tgt = s_src.contiguous(), s_tgt.contiguous()
+    eps = (5e-3, 1e-4)
+    zero = torch.zeros(s_src.shape[:2], device=dev)
+    solve = cuda_auction.auction_solve_banded
+    plain = cuda_auction.auction_solve_banded_plain
+    cold = solve(s_src, s_tgt, zero, eps, 100, w)
+    moved = (s_src + 0.002 * torch.from_numpy(rng.randn(*src.shape).astype(
+        np.float32)).to(dev)).contiguous()
+    shape = f"({b}, {n}, {n}) w={w}"
+    for label, x, p in ((f"{shape} cold", s_src, zero),
+                        (f"{shape} warm", moved, cold[1].contiguous())):
+        got = solve(x, s_tgt, p, eps, 100, w)
+        torch.cuda.synchronize()
+        # the band's distances once per epsilon phase (the bidding rows'
+        # passes depend on the data and are not counted here)
+        hold_batched(stats, "auction_solve_banded", label, got,
+                     plain(x, s_tgt, p, eps, 100, w),
+                     median_ms(lambda: solve(x, s_tgt, p, eps, 100, w), 5),
+                     median_ms(lambda: plain(x, s_tgt, p, eps, 100, w), 1),
+                     bound(PAIR_FLOPS * b * n * w * len(eps),
+                           (x, s_tgt, p, *got)))
+    complete = torch.from_numpy(np.stack(
+        [s["complete_pc_list"] for s in scenes])).to(dev)
+    anchors = complete[:, :-1].reshape(-1, n, 3).contiguous()
+    query = (anchors + 0.01 * torch.from_numpy(
+        rng.randn(*anchors.shape).astype(np.float32)).to(dev)).contiguous()
+    flows = (complete[:, 1:] - complete[:, :-1]).reshape(-1, n, 3) \
+        .contiguous()
+    got = cuda_nn.blend3(query, anchors, flows)
+    hold_batched(stats, "blend3", f"({len(query)}, {n}, {n})", got,
+                 cuda_nn.blend3_plain(query, anchors, flows),
+                 many_ms(lambda: cuda_nn.blend3(query, anchors, flows), 10,
+                         3),
+                 median_ms(lambda: cuda_nn.blend3_plain(query, anchors,
+                                                        flows), 1),
+                 bound(PAIR_FLOPS * len(query) * n * n,
+                       (query, anchors, flows, *got)))
+    return launches
+
+
+# scene 0 of the batch against phase 10's sequential run of the same scene:
+# phase 10's band guard solves the first half of the assignment phase dense
+# (10 of its 20 LAPs), the rows fit every LAP banded (no guard, as in the
+# JAX package), so the two fits part; these bars say both ended in the same
+# basin: the RI within 0.1, the errors within a factor of two. The rows'
+# arithmetic is held by the run of scene 0 without the guard
+BATCH_SEQ_TOL = {"seg_ri": ("abs", 0.1), "recon_err": ("rel", 1.0),
+                 "cd_err": ("rel", 1.0), "full_flow_epe": ("rel", 1.0),
+                 "per_scan_ri": ("abs", 0.1),
+                 "multi_scan_ri": ("abs", 0.1), "ass_err": ("rel", 1.0),
+                 "screw_err": ("abs", 0.05), "total_err": ("rel", 1.0)}
+
+
+def snapshot_phase(dev, tmp, sample, run_result):
+    """Phase C: phase 6's relaxation run again with --snapshot_graph
+    --snapshot_gap 100 --trace_dir: result.pkl equal to phase 6's bit for
+    bit, three snapshot rows in result.txt, a trace that names the Chamfer
+    kernel. Then phase 6's and phase 7's models written as the reference's
+    torch-format checkpoints: `--resume` of each (with --evaluate) gives
+    the numbers of `--resume` of its model.ckpt.pkl."""
+    import glob
+    import gzip
+
+    from reart_tpu_torch import checkpoint, cli
+    from reart_tpu_torch.profiling import phase_report, reset_phases
+
+    trace_dir = os.path.join(tmp, "trace")
+    save_dir = os.path.join(tmp, "table_snap")
+    args = robot_args(RUN_PROTOCOL + " --snapshot_graph --snapshot_gap 100 "
+                      f"--trace_dir {trace_dir}", tmp)
+    reset_phases()
+    for w in kernel_wrappers():
+        w.launches = 0
+    t0 = time.perf_counter()
+    # no device is named: the entry points take the card by themselves
+    cli.run_sample(args, "robot", sample, save_dir)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    got = checkpoint.load_result(os.path.join(save_dir, "result.pkl"))
+    ref = checkpoint.load_result(run_result)
+    bad = [k for k in ref if k not in got or not np.array_equal(
+        np.asarray(got[k]), np.asarray(ref[k]))]
+    if bad or got.keys() != ref.keys():
+        raise AssertionError(f"snapshots: result.pkl differs from phase 6's "
+                             f"at {bad}")
+    with open(os.path.join(save_dir, "result.txt")) as f:
+        txt = f.read().splitlines()
+    at = txt.index("# mid-fit snapshots (--snapshot_metrics)")
+    rows = txt[at + 1:]
+    with open(os.path.join(os.path.dirname(run_result), "result.txt")) as f:
+        if f.read().splitlines() != txt[:at - 1]:
+            raise AssertionError("snapshots: result.txt's numbers differ "
+                                 "from phase 6's")
+    if [r.split(" |")[0] for r in rows] != ["snapshot 100", "snapshot 200",
+                                            "snapshot 300"] or not all(
+            "total_err" in r and "edges" in r for r in rows):
+        raise AssertionError(f"snapshots: rows {rows}")
+    for r in rows:
+        log(f"snapshots: {r}")
+    [trace] = glob.glob(os.path.join(trace_dir, "*.pt.trace.json.gz"))
+    with gzip.open(trace, "rt") as f:
+        text = f.read()
+    # the port's kernel symbols (in anonymous namespaces, so the trace
+    # shows "(anonymous namespace)::<symbol>(...)")
+    symbols = set()
+    for src in glob.glob(os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "reart_tpu_torch", "csrc", "*.cu")):
+        with open(src) as f:
+            symbols |= set(re.findall(r"\b(\w+_kernel)\s*\(", f.read()))
+    names = sorted(k for k in symbols if k in text)
+    if "nn1_bidir_scan_kernel" not in names:
+        raise AssertionError(f"snapshots: the trace names no Chamfer kernel; "
+                             f"the port's kernels in it: {names}")
+    log(f"snapshots: result.pkl bit-equal to phase 6's; {wall:.2f} s; "
+        "seconds per stage "
+        + ", ".join(f"{k} {v:.3f}" for k, v in phase_report().items()))
+    log(f"snapshots: trace {os.path.getsize(trace)} bytes gzipped, "
+        f"{len(text)} bytes of JSON, the port's kernels named: {names}")
+    log(f"snapshots: kernel launches {launches}")
+
+    # the reference's torch-format checkpoints of phases 6 and 7
+    for what, pkl, extra in (
+            ("relaxation", os.path.join(tmp, "table", "model.ckpt.pkl"),
+             RUN_PROTOCOL),
+            ("projection", os.path.join(tmp, "table_kinematic",
+                                        "model.ckpt.pkl"),
+             "--model kinematic --num_parts 20")):
+        payload = checkpoint.load_checkpoint(pkl)
+        zipped = os.path.join(tmp, f"{what}.pth")
+        if payload.get("seg_part") is None:
+            checkpoint.save_torch_base(
+                zipped, checkpoint.base_model_from_checkpoint(payload,
+                                                              device=dev),
+                payload["tau"], payload["cano_idx"])
+        else:
+            model, state = checkpoint.kinematic_model_from_checkpoint(
+                payload, device=dev)
+            checkpoint.save_torch_kinematic(zipped, model, state,
+                                            payload["tau"],
+                                            payload["cano_idx"])
+        out = {}
+        for fmt, path in (("pickle", pkl), ("torch", zipped)):
+            rargs = robot_args(f"{extra} --evaluate --resume {path}", tmp)
+            out[fmt] = cli.run_sample(rargs, "robot", sample, os.path.join(
+                tmp, f"resume_{what}_{fmt}"))
+        if out["torch"] != out["pickle"]:
+            raise AssertionError(f"resume of the {what} run: torch-format "
+                                 f"{out['torch']} vs pickle {out['pickle']}")
+        log(f"resume of the {what} run's torch-format checkpoint "
+            f"({os.path.getsize(zipped)} bytes): the numbers of its "
+            "model.ckpt.pkl, "
+            + ", ".join(f"{k} {v:.4f}" for k, v in out["torch"].items()))
     return launches
 
 
@@ -3598,6 +4094,7 @@ def main():
         return out
 
     card = timed("device", device_phase)
+    viz_probe()
     timed("build", build_phase)
     stats = timed("kernels", kernel_phase, dev)
     timed("reference fit", reference_phase, dev)
@@ -3618,12 +4115,19 @@ def main():
                                    corr_path, stats)
         tree_search_launches = timed("tree search", tree_search_phase, dev,
                                      tmp, sample, result_path)
-        auto_cano_launches = timed("auto_cano", auto_cano_phase, dev, tmp,
-                                   sample, seq_dir)
+        auto_cano_launches, seq_sweep = timed(
+            "auto_cano", auto_cano_phase, dev, tmp, sample, seq_dir)
+        batched_launches = timed("batched candidates",
+                                 batched_candidates_phase, dev, stats,
+                                 seq_sweep)
         timed("toy sapien", toy_sapien_phase, dev, tmp)
-        sapien = timed("sapien chain", sapien_chain_phase, dev, tmp,
-                       args.keep_dir)
+        sapien, sapien_run = timed("sapien chain", sapien_chain_phase, dev,
+                                   tmp, args.keep_dir)
+        batch_seq_launches = timed("batch_seq", batch_seq_phase, dev, tmp,
+                                   stats, sapien_run)
         real = timed("real chain", real_chain_phase, dev, tmp)
+        snapshot_launches = timed("snapshots", snapshot_phase, dev, tmp,
+                                  sample, result_path)
     log("seconds per phase: " + ", ".join(f"{k} {v:.1f}"
                                           for k, v in seconds.items()))
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")
@@ -3634,11 +4138,13 @@ def main():
         # launches: over the full-width main paths, each driven from counts
         # of 0 (robot: the relaxation run, the projection run, the corr
         # training run, the relaxation run from corr flow, the three tree
-        # search runs, the --auto_cano run; sapien: both runs; real: the
-        # corr training run and both runs)
+        # search runs, the --auto_cano run, the batched candidate sweep,
+        # the relaxation run with snapshots; sapien: both runs, the
+        # --batch_seq run; real: the corr training run and both runs)
         paths = (run_launches, projection_launches, corr_launches,
                  corr_flow_launches, tree_search_launches,
-                 auto_cano_launches, *sapien.values(), *real.values())
+                 auto_cano_launches, *sapien.values(), *real.values(),
+                 batched_launches, batch_seq_launches, snapshot_launches)
         entry = {"name": name, "route": "cuda", "source": src,
                  "replaces": rep,
                  "launches": sum(p[name] for p in paths),
@@ -3648,6 +4154,9 @@ def main():
                  "launches_corr_flow_run": corr_flow_launches[name],
                  "launches_tree_search": tree_search_launches[name],
                  "launches_auto_cano": auto_cano_launches[name],
+                 "launches_batched_candidates": batched_launches[name],
+                 "launches_batch_seq": batch_seq_launches[name],
+                 "launches_snapshots": snapshot_launches[name],
                  "launches_sapien_run": sapien["relaxation"][name],
                  "launches_sapien_projection": sapien["projection"][name],
                  "launches_real_corr_train": real["corr"][name],

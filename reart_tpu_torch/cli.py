@@ -39,25 +39,33 @@ its energy plus a fabricated-displacement veto, or by held-out frames
 is locally ambiguous. `--auto_cano` picks the canonical frame first by a
 short relaxation fit per frame (selection.py).
 
+`sapien --batch_seq i,j,k` fits the relaxation stage of several sequences
+as one rows fit (parallel/rows.py), then finalizes each into
+`<save_root>/<idx>/`. `--snapshot_metrics` adds a metric row of the live
+fit every `--snapshot_gap` iterations to result.txt (`--snapshot_graph`
+also the graph stage and the energy), `--trace_dir` writes a torch.profiler
+trace of the fit, and `--resume` takes the reference's torch-format (zip)
+checkpoints too.
+
 Everything runs on the CUDA device unless `--device cpu` asks for the plain
 PyTorch versions. Tensors stay on that device; the combinatorial graph
-logic is numpy on the host. Not here yet, each raising NotImplementedError
-that names slice 5: `--batch_seq`, `--snapshot_metrics` /
-`--snapshot_graph`, `--save_vis` and torch-format (zip) checkpoints. The
-gif/html artifacts are not written.
+logic is numpy on the host. `--save_vis` raises NotImplementedError, naming
+slice 5c, and the gif/html artifacts are not written.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import functools
 import os
 
 import numpy as np
 import torch
 
-from reart_tpu_torch import resolve_device, to_numpy
-from reart_tpu_torch.profiling import phase_report, phase_timer
+from reart_tpu_torch import device_of, resolve_device, to_numpy
+from reart_tpu_torch.profiling import device_trace, phase_report, phase_timer
 
 
 # ---------------------------------------------------------------------------
@@ -240,9 +248,21 @@ def _common_args(p: argparse.ArgumentParser, domain: str):
     p.add_argument("--use_nproc", action="store_true",
                    help="no-op (reference: multiprocessing Hungarian pool)")
     p.add_argument("--use_cuda", default=1, type=int, help="no-op")
-    for flag in ("--snapshot_metrics", "--snapshot_graph", "--save_vis"):
-        p.add_argument(flag, action="store_true",
-                       help="ported in slice 5: raises")
+    p.add_argument("--snapshot_metrics", action="store_true",
+                   help="evaluate flow/seg/recon metrics on the live fit "
+                        "every --snapshot_gap iterations (the reference's "
+                        "mid-fit snapshot block), on a copy of the "
+                        "parameters in a worker thread; rows land in "
+                        "result.txt")
+    p.add_argument("--snapshot_graph", action="store_true",
+                   help="with --snapshot_metrics (implied), also the graph "
+                        "stage (denoise, merge, MST) and the selection "
+                        "energy of each snapshot")
+    p.add_argument("--save_vis", action="store_true",
+                   help="ported in slice 5c: raises")
+    p.add_argument("--trace_dir", default=None, type=str,
+                   help="write a torch.profiler trace of the fit here "
+                        "(Chrome trace; the card's kernels on a CUDA run)")
     if robot:
         p.add_argument("--normalize_file",
                        default="data/category_normalize_scale.pkl", type=str,
@@ -275,7 +295,10 @@ def _common_args(p: argparse.ArgumentParser, domain: str):
                             "model (e.g. one `corr --data_domain sapien` "
                             "trained)")
         p.add_argument("--batch_seq", default=None, type=str,
-                       help="ported in slice 5: raises")
+                       help="comma-separated sequence indices: fit their "
+                            "relaxation stages as one batch (base model, "
+                            "train only; '{idx}' in --flow_file is "
+                            "formatted per sequence)")
         p.add_argument("--flow_file", default=None, type=str,
                        help="precomputed flow .npz: flow (T-1, N, 3), conf "
                             "(T-1, N); anchors where conf > 0.5")
@@ -830,11 +853,187 @@ def tree_search_build(args, domain: str, cano_pc, seg_part, trans_list,
 
 
 # ---------------------------------------------------------------------------
+# mid-fit snapshots (the reference's snapshot block every snapshot_gap
+# iterations: the raw-argmax labels' metrics, and with --snapshot_graph the
+# graph stage and the energy)
+# ---------------------------------------------------------------------------
+
+def snapshot_metrics_row(domain: str, sample, cano_idx: int, seg_part,
+                         trans_list, device=None) -> dict:
+    """One mid-fit metric row of the current forward's labels (N,) and
+    poses (T-1, P, 4, 4): flow EPE / accuracies / angle (robot), RI, the
+    reconstruction error and the Chamfer error, in finalize's units. Runs
+    on the device of trans_list (for arrays: `device`, the card when
+    None)."""
+    from reart_tpu_torch import metrics as M
+    from reart_tpu_torch.models.base_model import compute_pc_transform
+
+    dev = device_of(trans_list, device=device)
+    cano_pc = torch.as_tensor(sample["cano_pc"], dtype=torch.float32,
+                              device=dev)
+    trans = torch.as_tensor(trans_list, dtype=torch.float32, device=dev)
+    seg = to_numpy(seg_part)
+    pred = compute_pc_transform(cano_pc, trans,
+                                torch.as_tensor(seg, device=dev))
+    complete_pred = torch.cat([pred[:cano_idx], cano_pc[None],
+                               pred[cano_idx:]], 0).cpu().numpy()
+    robot = domain == "robot"
+    unit = 100.0 if robot else 1.0
+    row = {}
+    if robot and "gt_flow_list" in sample:
+        epe, acc1, acc2, angle = M.eval_flow(
+            complete_pred[1:] - complete_pred[:-1], sample["gt_flow_list"],
+            0.005, 0.01)
+        row.update(flow_epe=epe * 100.0, flow_acc5=acc1, flow_acc10=acc2,
+                   flow_angle=angle)
+    if "gt_cano_part" in sample:
+        row["seg_ri"] = M.eval_seg(sample["gt_cano_part"], seg)
+    if "complete_gt_pc_list" in sample:
+        mse = np.sqrt(((complete_pred - sample["complete_gt_pc_list"]) ** 2
+                       ).sum(-1)).mean(1).mean()
+        row["recon_err"] = float(mse) * unit
+    row["cd_err"] = M.compute_chamfer_list(
+        pred, torch.as_tensor(sample["pc_list"], dtype=torch.float32,
+                              device=dev), reduction="mean") * unit
+    return row
+
+
+def snapshot_graph_row(args, domain: str, sample, seg_part,
+                       trans_list, device=None) -> dict:
+    """The snapshot's graph stage and energy: denoise, merge, the MST (on
+    root-aligned poses off the robot domain) and the relabelled tree's
+    selection energy. One row: part count, edge list, energy terms."""
+    from reart_tpu_torch import metrics as M
+    from reart_tpu_torch.graph import (
+        denoise_seg_label,
+        extract_kinematic,
+        merging_wrapper,
+        mst_wrapper,
+    )
+    from reart_tpu_torch.models.base_model import compute_pc_transform
+
+    dev = device_of(trans_list, device=device)
+    cano_pc = torch.as_tensor(sample["cano_pc"], dtype=torch.float32,
+                              device=dev)
+    trans = torch.as_tensor(trans_list, dtype=torch.float32, device=dev)
+    cano_idx = args.cano_idx
+    robot = domain == "robot"
+    seg = to_numpy(seg_part)
+
+    def aligned(tr):  # on the labels of the moment
+        return tr if robot else _root_aligned(seg, tr)
+
+    seg = denoise_seg_label(seg, cano_pc, min_num=20)
+    if len(np.unique(seg)) > 1:
+        seg = merging_wrapper(seg, aligned(trans), cano_pc, args.merge_thr,
+                              n_it=args.merge_it)
+    if len(np.unique(seg)) > 1:
+        conn = np.asarray(mst_wrapper(
+            seg, aligned(trans), cano_pc, num_fps=20,
+            cano_dist_thr=args.cano_dist_thr,
+            joint_cost_weight=args.lambda_joint))
+    else:
+        conn = np.zeros((0, 2), np.int64)
+    if conn.shape[0] > 0:
+        seg, trans, conn = extract_kinematic(seg, trans, conn)
+    else:
+        lab = int(np.unique(seg)[0])
+        seg = np.zeros_like(seg)
+        trans = trans[:, lab:lab + 1]
+    pred = compute_pc_transform(cano_pc, trans,
+                                torch.as_tensor(seg, device=dev))
+    complete_pred = torch.cat([pred[:cano_idx], cano_pc[None],
+                               pred[cano_idx:]], 0)
+    e = M.energy(pred, torch.as_tensor(sample["pc_list"], dtype=torch.float32,
+                                       device=dev),
+                 trans, conn, seg, complete_pred_pc_list=complete_pred,
+                 include_group=robot)
+    row = {"parts": len(np.unique(seg)), "edges": np.asarray(conn).tolist()}
+    row.update({k: float(v) for k, v in e.items()})
+    return row
+
+
+class SnapshotEvaluator:
+    """Mid-fit metric rows off the fit's path. `callback(done, model)` is
+    engine.fit's snapshot_cb: it copies the model (parameters detached; the
+    fit goes on training its own) and queues the copy; a worker thread on
+    the run's device runs `forward_of(copy)` -> (labels, poses) and
+    snapshot_metrics_row (with `graph_args`, --snapshot_graph: also
+    snapshot_graph_row) and keeps `snapshot N | k: v | ...` rows for
+    result.txt. The fit's parameters and history do not depend on it. A
+    row that fails stops the rows, and `finish()` raises its error."""
+
+    def __init__(self, domain, sample, cano_idx, forward_of, graph_args=None,
+                 device=None):
+        import queue
+        import threading
+
+        self.rows = []
+        self._q = queue.Queue()
+        self._error = None
+        self._domain, self._sample = domain, sample
+        self._cano_idx, self._forward_of = cano_idx, forward_of
+        self._graph_args = graph_args
+        self._dev = resolve_device(device)
+        self._t = threading.Thread(target=self._work, daemon=True)
+        self._t.start()
+
+    def callback(self, done, model):
+        import copy
+
+        clone = copy.deepcopy(model)
+        for p in clone.parameters():
+            p.grad = None
+            p.requires_grad_(False)
+        self._q.put((done, clone))
+
+    @staticmethod
+    def _fmt(v):
+        return f"{v:.3f}" if isinstance(v, float) else str(v)
+
+    def _row(self, done, model):
+        seg, trans = self._forward_of(model)
+        row = snapshot_metrics_row(self._domain, self._sample, self._cano_idx,
+                                   seg, trans)
+        if self._graph_args is not None:
+            row.update(snapshot_graph_row(self._graph_args, self._domain,
+                                          self._sample, seg, trans))
+        msg = " | ".join(f"{k}: {self._fmt(v)}" for k, v in row.items())
+        self.rows.append(f"snapshot {done} | {msg}")
+        print(f"[snapshot {done}] {msg}", flush=True)
+
+    def _work(self):
+        import contextlib
+
+        on_card = (torch.cuda.device(self._dev) if self._dev.type == "cuda"
+                   else contextlib.nullcontext())
+        with on_card, torch.no_grad():
+            while True:
+                item = self._q.get()
+                if item is None:
+                    return
+                if self._error is None:
+                    try:
+                        self._row(*item)
+                    except BaseException as e:  # raised again by finish()
+                        self._error = e
+
+    def finish(self) -> list:
+        """Wait for the queued rows; returns them, or raises the error of
+        the first row that failed."""
+        self._q.put(None)
+        self._t.join()
+        if self._error is not None:
+            raise self._error
+        return self.rows
+
+
+# ---------------------------------------------------------------------------
 # final snapshot: graph extraction + metrics + result files
 # ---------------------------------------------------------------------------
 
 def finalize(args, domain: str, sample, seg_part, trans_list, params, state,
-             save_dir: str, tau: float, device=None):
+             save_dir: str, tau: float, device=None, snapshot_rows=None):
     """Everything the reference does at its last iteration: seg refinement,
     graph stage, metrics, retargeting, TED, energy, result files.
 
@@ -849,8 +1048,9 @@ def finalize(args, domain: str, sample, seg_part, trans_list, params, state,
     errors are in the data's units, sapien adds the full-flow error and the
     per- and multi-scan RI, and there is no retargeting, no TED and no group
     term in the energy. With --evaluate there is no energy and only
-    result.txt is written. Runs on `device` (the card when None). Returns
-    the dict of numbers that result.txt lists."""
+    result.txt is written. `snapshot_rows` (SnapshotEvaluator.finish) follow
+    the numbers in result.txt. Runs on `device` (the card when None).
+    Returns the dict of numbers that result.txt lists."""
     from reart_tpu_torch import checkpoint as ckpt
     from reart_tpu_torch import metrics as M
     from reart_tpu_torch.graph import (
@@ -1007,6 +1207,9 @@ def finalize(args, domain: str, sample, seg_part, trans_list, params, state,
                                  params, tau, cano_idx, state=state)
 
     lines = [f"{k}: {v:.3f}" for k, v in results.items()]
+    if snapshot_rows:
+        lines.extend(["", "# mid-fit snapshots (--snapshot_metrics)"]
+                     + list(snapshot_rows))
     with open(os.path.join(save_dir, "result.txt"), "w") as f:
         f.write("\n".join(lines) + "\n")
     if not quiet:
@@ -1022,19 +1225,27 @@ def _load_model(args, cano_pc, pc_list, cfg, flow_ctx, dev):
     """(params, state, tau) at the start of the run: a fresh BaseModel, the
     kinematic model built from --base_result_path (with the tree search,
     which short-fits on pc_list with cfg and flow_ctx), or either model
-    from the pickle checkpoint --resume names (state is None for a base
-    model)."""
+    from the checkpoint --resume names, a model.ckpt.pkl or the
+    reference's torch-format file (state is None for a base model)."""
     from reart_tpu_torch import checkpoint as ckpt
     from reart_tpu_torch.models.base_model import BaseModel
 
     payload = None
     if args.resume:
-        with open(args.resume[0], "rb") as f:
-            if f.read(2) == b"PK":  # torch.save's zip container
-                raise NotImplementedError(
-                    f"--resume {args.resume[0]}: torch-format checkpoints "
-                    f"are ported in slice 5; resume from a model.ckpt.pkl")
-        payload = ckpt.load_checkpoint(args.resume[0])
+        path = args.resume[0]
+        if ckpt.is_torch_checkpoint(path):  # the reference's torch.save
+            if args.model == "base":
+                params, tau, ck_cano = ckpt.load_torch_base(path, device=dev)
+                state = None
+            else:
+                params, state, tau, ck_cano = ckpt.load_torch_kinematic(
+                    path, device=dev)
+            if ck_cano != args.cano_idx:
+                raise ValueError(f"--resume {path}: checkpoint cano_idx "
+                                 f"{ck_cano} is not --cano_idx "
+                                 f"{args.cano_idx}")
+            return params, state, tau
+        payload = ckpt.load_checkpoint(path)
     if args.model == "base":
         if payload is not None:
             return (ckpt.base_model_from_checkpoint(payload, device=dev),
@@ -1067,8 +1278,7 @@ def run_sample(args, domain: str, sample, save_dir: str, device=None,
     `save_dir` while it runs. The kinematic stage's tree search runs here;
     --auto_cano is `main`'s, which picks the canonical frame before it
     loads the sample. Returns finalize's results."""
-    from reart_tpu_torch.models.base_model import base_forward, gumbel_noise
-    from reart_tpu_torch.models.kinematic import kinematic_forward
+    from reart_tpu_torch.models.base_model import gumbel_noise
     from reart_tpu_torch.train import fit_base, fit_kinematic
 
     _not_ported_flags(args)
@@ -1084,10 +1294,21 @@ def run_sample(args, domain: str, sample, save_dir: str, device=None,
                                      dev)
     shape = (cano_pc.shape[0], args.num_parts)
 
+    snapshots = None
     if not args.evaluate:
         fit_kw = dict(flow_ctx=flow_ctx, device=dev, checkpoint_dir=save_dir,
                       log_every=None if args.silence else args.snapshot_gap)
-        with phase_timer("fit", verbose=not args.silence):
+        if args.snapshot_metrics or args.snapshot_graph:
+            snapshots = SnapshotEvaluator(
+                domain, sample, args.cano_idx,
+                functools.partial(_final_forward, state=state,
+                                  cano_pc=cano_pc, shape=shape),
+                graph_args=args if args.snapshot_graph else None, device=dev)
+            fit_kw.update(snapshot_cb=snapshots.callback,
+                          snapshot_every=args.snapshot_gap)
+        trace = (device_trace(args.trace_dir, cuda=dev.type == "cuda")
+                 if args.trace_dir else contextlib.nullcontext())
+        with phase_timer("fit", verbose=not args.silence), trace:
             if state is None:
                 if noise is None:
                     gen = torch.Generator(device=dev).manual_seed(
@@ -1106,30 +1327,106 @@ def run_sample(args, domain: str, sample, save_dir: str, device=None,
             print(f"fit done: final total_loss {final_loss:.3f}", flush=True)
         tau = args.end_tau
 
-    # final forward at tau 1: the labels are the argmax of the logits and
-    # the poses do not depend on the draw, so the noise is zero
     with torch.no_grad():
-        if state is None:
-            _, seg_part, trans_list = base_forward(
-                params, cano_pc, torch.zeros(shape, device=dev), tau=1.0)
-        else:
-            _, seg_part, trans_list = kinematic_forward(params, state,
-                                                        cano_pc)
+        seg_part, trans_list = _final_forward(params, state, cano_pc, shape)
+    rows = snapshots.finish() if snapshots is not None else None
 
     with phase_timer("finalize", verbose=not args.silence):
         return finalize(args, domain, sample, seg_part, trans_list, params,
-                        state, save_dir, tau, device=dev)
+                        state, save_dir, tau, device=dev, snapshot_rows=rows)
+
+
+def _final_forward(params, state, cano_pc, shape):
+    """(labels (N,), poses (T-1, P, 4, 4)) of a model: the relaxation
+    forward at tau 1, where the labels are the logits' argmax and the poses
+    do not depend on the draw (so the noise is zero), or the kinematic
+    forward on its state."""
+    from reart_tpu_torch.models.base_model import base_forward
+    from reart_tpu_torch.models.kinematic import kinematic_forward
+
+    if state is None:
+        _, seg, trans = base_forward(
+            params, cano_pc, torch.zeros(shape, device=cano_pc.device), 1.0)
+    else:
+        _, seg, trans = kinematic_forward(params, state, cano_pc)
+    return seg, trans
 
 
 def _not_ported_flags(args) -> None:
-    """Raise for a flag whose feature is ported in slice 5."""
-    on = [f"--{k}" for k in ("snapshot_metrics", "snapshot_graph",
-                             "save_vis", "batch_seq")
-          if getattr(args, k, None)]
-    if on:
-        raise NotImplementedError(
-            f"{', '.join(on)}: ported in slice 5 (mid-fit snapshots, "
-            f"artifacts, batched sequences)")
+    """Raise for a flag whose feature is ported in slice 5c."""
+    if getattr(args, "save_vis", False):
+        raise NotImplementedError("--save_vis: ported in slice 5c (the "
+                                  "gif/html artifacts, viz.py)")
+
+
+def _stack_flow_contexts(ctxs):
+    """Per-sequence FlowContexts -> one with (B, T-1, M, 3) leaves, each
+    padded to the common M with FAR points and zero flow (the padding of
+    FlowContext.from_lists); None if any sequence has none."""
+    from reart_tpu_torch.train import FlowContext
+    from reart_tpu_torch.train.engine import FAR
+
+    if any(c is None for c in ctxs):
+        return None
+    m = max(int(c.pc_ref.shape[1]) for c in ctxs)
+
+    def pad(x, value):
+        fill = x.new_full((x.shape[0], m - x.shape[1], 3), value)
+        return torch.cat([x, fill], dim=1)
+
+    return FlowContext(torch.stack([pad(c.pc_ref, FAR) for c in ctxs]),
+                       torch.stack([pad(c.flow_ref, 0.0) for c in ctxs]))
+
+
+def run_batch_seq(args, dataset, device=None):
+    """`sapien --batch_seq i,j,k`: the relaxation stage of several sequences
+    (one shape) as one rows fit on the device (parallel.fit_base_sequences,
+    under phase "fit"), then each sequence's finalize into
+    `<save_root>/<idx>/` (phase "finalize/<idx>"). Each sequence has its
+    own flow anchors, `{idx}` in --flow_file formatted with its index. The
+    rows fit has no band guard, no resume and no snapshots. Returns the
+    finalize results, one a sequence."""
+    import copy
+
+    from reart_tpu_torch.parallel import fit_base_sequences
+
+    if args.model != "base" or args.evaluate:
+        raise ValueError("--batch_seq fits base-model relaxations (no "
+                         "--model kinematic, no --evaluate)")
+    if args.resume or args.snapshot_metrics or args.snapshot_graph:
+        raise ValueError("--batch_seq takes no --resume and no snapshots")
+    dev = resolve_device(device)
+    idxs = [int(i) for i in args.batch_seq.split(",")]
+    samples = [dataset_sample(dataset, i) for i in idxs]
+    cano_b = np.stack([np.asarray(s["cano_pc"], np.float32)
+                       for s in samples])
+    pc_b = np.stack([np.asarray(s["pc_list"], np.float32) for s in samples])
+    flow_b = None
+    if args.use_flow_loss:
+        ctxs = []
+        for i, sample in zip(idxs, samples):
+            a = args
+            if args.flow_file and "{" in args.flow_file:
+                a = copy.copy(args)
+                a.flow_file = args.flow_file.format(idx=i)
+            ctxs.append(setup_flow(a, sample, dev, "sapien"))
+        flow_b = _stack_flow_contexts(ctxs)
+    cfg = fit_config(args, "sapien")
+    print(f"batch_seq: fitting {len(idxs)} sequences as one batch on {dev}",
+          flush=True)
+    with phase_timer("fit", verbose=not args.silence):
+        fits = fit_base_sequences(cfg, cano_b, pc_b, args.cano_idx,
+                                  args.num_parts, flow_b=flow_b,
+                                  seed=args.manual_seed, device=dev)
+    results = []
+    for i, sample, (params, seg, trans) in zip(idxs, samples, fits):
+        save_dir = os.path.join(args.save_root, str(i))
+        os.makedirs(save_dir, exist_ok=True)
+        with phase_timer(f"finalize/{i}", verbose=not args.silence):
+            results.append(finalize(args, "sapien", sample, seg, trans,
+                                    params, None, save_dir, args.end_tau,
+                                    device=dev))
+    return results
 
 
 def main(argv=None):
@@ -1141,6 +1438,11 @@ def main(argv=None):
 
     _not_ported_flags(args)
     sapien = args.domain == "sapien"
+    if sapien and args.batch_seq:
+        results = run_batch_seq(args, load_dataset(args), device)
+        if not args.silence:
+            print(f"[phases] {phase_report()}")
+        return results
     idx = args.sapien_idx if sapien else 0
     sample = dataset_sample(load_dataset(args), idx)
     if args.auto_cano and args.model == "base" and not args.evaluate:
@@ -1150,11 +1452,14 @@ def main(argv=None):
             fit_config(args),
             n_iter=args.auto_cano_iters or max(100, args.n_iter // 10),
             use_flow_loss=False)
+        # the JAX condition for its batched sweep, a mesh of more than one
+        # device; the rows share one card here
+        batched = device.type == "cuda" and torch.cuda.device_count() > 1
         with phase_timer("auto_cano", verbose=not args.silence):
             best, energies = select_canonical_frame(
                 sample["complete_pc_list"], sel_cfg, args.num_parts,
                 include_group=args.domain == "robot", seed=args.manual_seed,
-                device=device)
+                batched=batched, device=device)
         print(f"auto_cano: selected frame {best} (energies "
               f"{[round(e['total_err'], 3) for e in energies.values()]})",
               flush=True)

@@ -261,21 +261,45 @@ def write_normalize_file(path: str, seq_dir: str, sample: dict) -> None:
 
 def make_sapien_scene(root: str, n_views: int = 8, n_points: int = 4096,
                       n_parts: int = 6, seed: int = 0,
-                      cam_rot: float = 0.06, cam_trans: float = 0.03) -> str:
-    """Write one mbs-sapien scene of the part table under `root` and return
-    root: <root>/meta.json {"test": [0]}; <root>/data/000000.npz with pc
-    (V, N, 3) float32 in each view's camera frame, segm (V, N) 1-based and
-    trans {"cam": [V 4x4], 1..P: [V 4x4]} (world-frame part motions);
-    <root>/flow.npz with the GT flow of consecutive views and confidence 1
-    (the `--flow_file` of the sapien subcommand).
+                      cam_rot: float = 0.06, cam_trans: float = 0.03,
+                      n_scenes: int = 1, rate_step: float = 0.15) -> str:
+    """Write mbs-sapien scenes of the part table under `root` and return
+    root: <root>/meta.json {"test": [0, ..., n_scenes - 1]}; for scene k
+    <root>/data/<k:06d>.npz with pc (V, N, 3) float32 in each view's camera
+    frame, segm (V, N) 1-based and trans {"cam": [V 4x4], 1..P: [V 4x4]}
+    (world-frame part motions), and <root>/flow_<k>.npz with the GT flow of
+    consecutive views and confidence 1 (the `--flow_file` of the sapien
+    subcommand: `flow_{idx}.npz` for `--batch_seq`); <root>/flow.npz is
+    scene 0's.
 
     n_parts (2..6) takes a prefix of the table (4 and more keep both
     prismatic joints); every view observes the same volume-sampled points.
     View v's camera is rotz(cam_rot * v) after a translation of
-    cam_trans * v along (+x, -y): the raw views are not aligned."""
+    cam_trans * v along (+x, -y): the raw views are not aligned. Scene k
+    draws its points from seed + k and moves its joints at (1 + k *
+    rate_step) times the table's rates, so the scenes differ; scene 0 is
+    the one scene of n_scenes=1."""
     assert 2 <= n_parts <= len(_PARTS)
     os.makedirs(os.path.join(root, "data"), exist_ok=True)
-    rng = np.random.RandomState(seed)
+    for k in range(n_scenes):
+        pcs, segms, trans = _sapien_views(
+            np.random.RandomState(seed + k), n_views, n_points, n_parts,
+            cam_rot, cam_trans, 1.0 + k * rate_step)
+        np.savez(os.path.join(root, "data", "%06d.npz" % k), pc=pcs,
+                 segm=segms, trans=np.asarray(trans, dtype=object))
+        flow = (pcs[1:] - pcs[:-1]).astype(np.float32)
+        names = [f"flow_{k}.npz"] + (["flow.npz"] if k == 0 else [])
+        for name in names:
+            np.savez(os.path.join(root, name), flow=flow,
+                     conf=np.ones(flow.shape[:2], np.float32))
+    with open(os.path.join(root, "meta.json"), "w") as f:
+        json.dump({"test": list(range(n_scenes))}, f)
+    return root
+
+
+def _sapien_views(rng, n_views, n_points, n_parts, cam_rot, cam_trans,
+                  rate_scale):
+    """One scene's views: (pc (V, N, 3) float32, segm (V, N), trans)."""
     n_per = n_points // n_parts
     clouds, seg = [], []
     for pid, (lo, hi, _, _) in enumerate(_PARTS[:n_parts]):
@@ -294,20 +318,13 @@ def make_sapien_scene(root: str, n_views: int = 8, n_points: int = 4096,
         trans["cam"].append(cam)
         world = homo.copy()
         for pid, (_, _, kind, param) in enumerate(_PARTS[:n_parts]):
-            m = _part_pose(kind, param, v)
+            m = _part_pose(kind, param, v * rate_scale)
             trans[pid + 1].append(m)
             sel = segm1 == pid + 1
             world[sel] = homo[sel] @ m.T
         pcs.append((world @ np.linalg.inv(cam).T)[:, :3].astype(np.float32))
         segms.append(segm1)
-    np.savez(os.path.join(root, "data", "000000.npz"), pc=np.stack(pcs),
-             segm=np.stack(segms), trans=np.asarray(trans, dtype=object))
-    with open(os.path.join(root, "meta.json"), "w") as f:
-        json.dump({"test": [0]}, f)
-    flow = (np.stack(pcs)[1:] - np.stack(pcs)[:-1]).astype(np.float32)
-    np.savez(os.path.join(root, "flow.npz"), flow=flow,
-             conf=np.ones(flow.shape[:2], np.float32))
-    return root
+    return np.stack(pcs), np.stack(segms), trans
 
 
 def _box_mesh(lo, hi):

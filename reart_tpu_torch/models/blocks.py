@@ -41,12 +41,19 @@ class MLP(nn.Module):
                         -bound, bound, generator=generator))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        n = len(self.layers)
-        for i, layer in enumerate(self.layers):
-            # product first, bias after, as the JAX reference computes it
-            x = F.linear(x, layer.weight)
-            if layer.bias is not None:
-                x = x + layer.bias
-            if i < n - 1:
-                x = F.relu(x)
-        return x
+        return mlp_apply(x, [layer.weight for layer in self.layers],
+                         [layer.bias for layer in self.layers])
+
+
+def mlp_apply(x: torch.Tensor, weights, biases) -> torch.Tensor:
+    """The MLP's forward with its (out, in) weights and biases (None where a
+    layer has none) given as tensors."""
+    n = len(weights)
+    for i, (w, b) in enumerate(zip(weights, biases)):
+        # product first, bias after, as the JAX reference computes it
+        x = F.linear(x, w)
+        if b is not None:
+            x = x + b
+        if i < n - 1:
+            x = F.relu(x)
+    return x

@@ -3,11 +3,14 @@
     with phase_timer("fit"):   # prints and records seconds
         ...
     phase_report()             # {"fit": seconds, ...}
+    with device_trace(dir):    # a torch.profiler Chrome trace in dir
+        ...
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 
 import torch
@@ -43,3 +46,24 @@ def phase_report() -> dict[str, float]:
 
 def reset_phases() -> None:
     _PHASES.clear()
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: str, cuda: bool | None = None):
+    """A torch.profiler trace around a region, written to `log_dir` as a
+    gzipped Chrome trace (`<host>_<pid>.<ms>.pt.trace.json.gz`, which
+    Perfetto and TensorBoard read). Host activity always, the card's
+    kernels too with `cuda` (default: when a CUDA device is available)."""
+    from torch import profiler
+
+    if cuda is None:
+        cuda = torch.cuda.is_available()
+    activities = [profiler.ProfilerActivity.CPU]
+    if cuda:
+        activities.append(profiler.ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profiler.profile(
+            activities=activities,
+            on_trace_ready=profiler.tensorboard_trace_handler(
+                log_dir, use_gzip=True)):
+        yield

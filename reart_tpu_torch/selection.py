@@ -1,7 +1,8 @@
 """Energy-based canonical-frame and model selection (reart_tpu/selection.py).
 
 `select_canonical_frame` fits the relaxation model once per candidate
-canonical frame, one candidate after another on the run's device, and keeps
+canonical frame, one candidate after another on the run's device (or all
+of them as one rows fit, parallel/rows.py), and keeps
 the frame whose fit has the lowest selection energy (the ass + screw
 [+ group] energy that finalize prints). `holdout_score` ranks a kinematic
 tree by how well its screws, fitted on a subset of the frames, carry over
@@ -195,13 +196,18 @@ def fit_energy(cano_pc, pc_list, cano_idx: int, seg_part, trans_list,
 
 
 def select_canonical_frame(complete_pc_list, cfg, num_parts: int,
-                           include_group: bool = True, verbose: bool = True,
-                           seed: int = 0, init_model=None, noise=None,
+                           candidates=None, include_group: bool = True,
+                           verbose: bool = True, seed: int = 0,
+                           init_model=None, noise=None, batched: bool = False,
                            device=None):
-    """Fit the relaxation model once per frame as the canonical frame and
-    return (best_idx, {idx: energy dict}); the first of equal energies
-    wins. complete_pc_list (T, N, 3). The fits carry no flow term (the
-    selection criterion is the energy, which has none).
+    """Fit the relaxation model once per candidate canonical frame (every
+    frame when `candidates` is None) and return (best_idx, {idx: energy
+    dict}); the first of equal energies wins. complete_pc_list (T, N, 3).
+    The fits carry no flow term (the selection criterion is the energy,
+    which has none). With `batched` (the JAX package's mesh of more than
+    one device) and more than one candidate, the candidates are fitted as
+    one rows fit (parallel.fit_base_candidates) and then scored as the
+    sequential loop scores them.
 
     Every candidate starts from the same parameters and draws, as the JAX
     package's one key gives them: `init_model()` -> a fresh BaseModel
@@ -226,23 +232,39 @@ def select_canonical_frame(complete_pc_list, cfg, num_parts: int,
             return BaseModel(num_parts, t - 1, device=dev,
                              generator=torch.Generator().manual_seed(seed))
 
+    candidates = [int(i) for i in (range(t) if candidates is None
+                                   else candidates)]
+    fits = None
+    if batched and len(candidates) > 1:
+        from reart_tpu_torch.parallel import fit_base_candidates
+
+        if verbose:
+            print(f"auto_cano sweep: {len(candidates)} candidates as one "
+                  f"batch on {dev}", flush=True)
+        fits = fit_base_candidates(cfg, complete, num_parts, candidates,
+                                   seed=seed, init_model=init_model,
+                                   noise=noise, device=dev)
+
     energies = {}
-    for cano_idx in range(t):
+    for cano_idx in candidates:
         cano_pc = complete[cano_idx]
         pc_list = torch.cat([complete[:cano_idx], complete[cano_idx + 1:]])
-        draw = noise
-        if draw is None:
-            gen = torch.Generator(device=dev).manual_seed(seed)
+        if fits is not None:
+            _, seg, trans = fits[cano_idx]
+        else:
+            draw = noise
+            if draw is None:
+                gen = torch.Generator(device=dev).manual_seed(seed)
 
-            def draw(_it, gen=gen):
-                return gumbel_noise(shape, gen, dev)
+                def draw(_it, gen=gen):
+                    return gumbel_noise(shape, gen, dev)
 
-        fitted, _ = fit_base(init_model(),
-                             dataclasses.replace(cfg, cano_idx=cano_idx),
-                             cano_pc, pc_list, noise=draw, device=dev)
-        with torch.no_grad():  # at tau 1 the labels are the logits' argmax
-            _, seg, trans = base_forward(fitted, cano_pc,
-                                         torch.zeros(shape, device=dev), 1.0)
+            fitted, _ = fit_base(init_model(),
+                                 dataclasses.replace(cfg, cano_idx=cano_idx),
+                                 cano_pc, pc_list, noise=draw, device=dev)
+            with torch.no_grad():  # at tau 1 the labels are the argmax
+                _, seg, trans = base_forward(
+                    fitted, cano_pc, torch.zeros(shape, device=dev), 1.0)
         e = fit_energy(cano_pc, pc_list, cano_idx, seg.cpu().numpy(), trans,
                        include_group=include_group)
         energies[cano_idx] = e

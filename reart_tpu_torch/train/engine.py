@@ -139,7 +139,9 @@ class FlowContext(NamedTuple):
 class AssignContext(NamedTuple):
     """FPS downsampling for the assignment loss, computed once per fit:
     src_idx (num_fps,) rows of the canonical cloud, pc_tgt (T-1, num_fps, 3)
-    the downsampled target frames."""
+    the downsampled target frames. A rows fit holds src_idx (C, num_fps),
+    each row's own, and pc_tgt (C * (T-1), num_fps, 3), its frames folded
+    into the batch axis."""
 
     src_idx: torch.Tensor
     pc_tgt: torch.Tensor
@@ -147,10 +149,28 @@ class AssignContext(NamedTuple):
 
 def build_assign_context(cano_pc: torch.Tensor, pc_list: torch.Tensor,
                          downsample: int) -> AssignContext:
-    num_fps = pc_list.shape[1] // downsample
-    src_idx = farthest_point_sample(cano_pc[None], num_fps)[0]
-    tgt_idx = farthest_point_sample(pc_list, num_fps)
-    return AssignContext(src_idx, index_points(pc_list, tgt_idx))
+    """cano_pc (N, 3) and pc_list (T-1, N, 3); or C rows of each, (C, N, 3)
+    and (C, T-1, N, 3): one FPS launch for the C canonical clouds and one
+    for the C * (T-1) frames."""
+    num_fps = pc_list.shape[-2] // downsample
+    if cano_pc.dim() == 2:
+        src_idx = farthest_point_sample(cano_pc[None], num_fps)[0]
+    else:
+        src_idx = farthest_point_sample(cano_pc, num_fps)
+    frames = pc_list.reshape((-1,) + pc_list.shape[-2:])
+    tgt_idx = farthest_point_sample(frames, num_fps)
+    return AssignContext(src_idx, index_points(frames, tgt_idx))
+
+
+def select_rows(actx: AssignContext, pc_trans_list: torch.Tensor):
+    """The assignment's source points: (T-1, N, 3) -> (T-1, num_fps, 3);
+    for C rows (C, T-1, N, 3) -> (C * (T-1), num_fps, 3), each row's own
+    FPS rows."""
+    if pc_trans_list.dim() == 3:
+        return pc_trans_list[:, actx.src_idx]
+    c, t, _, _ = pc_trans_list.shape
+    idx = actx.src_idx[:, None, :, None].expand(c, t, -1, 3)
+    return torch.gather(pc_trans_list, 2, idx).reshape(c * t, -1, 3)
 
 
 def make_optimizer(model: torch.nn.Module, cfg: FitConfig,
@@ -171,20 +191,34 @@ def make_optimizer(model: torch.nn.Module, cfg: FitConfig,
 
 
 def _complete(pc_trans_list: torch.Tensor, cano_pc: torch.Tensor,
-              cano_idx: int) -> torch.Tensor:
-    """Re-insert the canonical frame at its original position."""
-    return torch.cat([pc_trans_list[:cano_idx], cano_pc[None],
-                      pc_trans_list[cano_idx:]], dim=0)
+              cano_idx) -> torch.Tensor:
+    """Re-insert the canonical frame at its original position: (T-1, N, 3)
+    and (N, 3) at an int cano_idx -> (T, N, 3); C rows (C, T-1, N, 3) and
+    (C, N, 3), each at its own cano_idx[c] ((C,) int64) -> (C, T, N, 3)."""
+    if pc_trans_list.dim() == 3:
+        return torch.cat([pc_trans_list[:cano_idx], cano_pc[None],
+                          pc_trans_list[cano_idx:]], dim=0)
+    c, tm1, n, _ = pc_trans_list.shape
+    both = torch.cat([pc_trans_list, cano_pc[:, None]], dim=1)
+    t = torch.arange(tm1 + 1, device=both.device)[None]
+    k = cano_idx[:, None]
+    src = torch.where(t < k, t, torch.where(t == k, tm1, t - 1))
+    return torch.gather(both, 1, src[:, :, None, None].expand(c, -1, n, 3))
 
 
 def _flow_term(pc_trans_list, cano_pc, flow_ctx: FlowContext,
-               cfg: FitConfig):
+               cfg: FitConfig, cano_idx):
     """Blend the anchor flows onto the predicted source points (no grad) and
-    apply the masked flow loss."""
-    complete_pred = _complete(pc_trans_list, cano_pc, cfg.cano_idx)
+    apply the masked flow loss; C rows fold their frames into the batch."""
+    complete_pred = _complete(pc_trans_list, cano_pc, cano_idx)
+
+    def fold(x):
+        return x.reshape((-1,) + x.shape[-2:])
+
+    src = fold(complete_pred[..., :-1, :, :])
     blended, mask = blend_anchor_motion_batched(
-        complete_pred[:-1].detach(), flow_ctx.pc_ref, flow_ctx.flow_ref)
-    pred_flow = complete_pred[1:] - complete_pred[:-1]
+        src.detach(), fold(flow_ctx.pc_ref), fold(flow_ctx.flow_ref))
+    pred_flow = fold(complete_pred[..., 1:, :, :]) - src
     return cfg.lambda_flow * flow_loss(blended, pred_flow,
                                        flow_mask_list=mask,
                                        robust=cfg.use_robust_loss)
@@ -208,7 +242,7 @@ def fit(forward_fn: ForwardFn, model: torch.nn.Module, cfg: FitConfig,
         flow_ctx: FlowContext | None = None, two_group_opt: bool = False,
         log_every: int | None = None, checkpoint_dir: str | None = None,
         checkpoint_every: int = 2000, snapshot_cb=None,
-        snapshot_every: int | None = None):
+        snapshot_every: int | None = None, cano_idx=None):
     """Run the fit in place on `model`. Returns (model, history): history
     maps total_loss, recon_loss, ass_loss and flow_loss to (n_iter,)
     float32 tensors on the model's device, zeros where a term is inactive.
@@ -222,8 +256,27 @@ def fit(forward_fn: ForwardFn, model: torch.nn.Module, cfg: FitConfig,
     snapshot_every, never after the last iteration.
     checkpoint_dir: resume from `fit_state.pkl` there when it exists, save
     to it (atomically) every checkpoint_every iterations, remove it when
-    the fit completes."""
+    the fit completes.
+
+    Rows: with cano_pc (C, N, 3) and pc_list (C, T-1, N, 3) the model is a
+    rows model (parallel.BaseRows) and C independent fits run as one: their
+    frames fold into the kernels' batch axis and the summed loss gives each
+    row its own gradient. `cano_idx` holds each row's canonical frame (C
+    ints; cfg.cano_idx for every row when None) and history the rows'
+    sums. As the JAX package's rows fit, every LAP past 1024^2 that the
+    banded solve admits takes it, with no band guard and no re-probe, and
+    there is no checkpoint, resume or snapshot."""
     dev = cano_pc.device
+    rows = cano_pc.dim() == 3
+    if rows:
+        if checkpoint_dir is not None or snapshot_cb is not None:
+            raise ValueError("a rows fit takes no checkpoint_dir and no "
+                             "snapshot_cb")
+        cano_idx = torch.as_tensor(
+            [cfg.cano_idx] * cano_pc.shape[0] if cano_idx is None
+            else cano_idx, dtype=torch.int64, device=dev)
+    elif cano_idx is None:
+        cano_idx = cfg.cano_idx
     opt = make_optimizer(model, cfg, two_groups=two_group_opt)
     tau_fn = functools.partial(tau_cosine, max_iter=cfg.n_iter,
                                end_temp=cfg.end_tau, start_temp=cfg.start_tau)
@@ -299,10 +352,10 @@ def fit(forward_fn: ForwardFn, model: torch.nn.Module, cfg: FitConfig,
             terms["recon_loss"] = recon_loss(pc_trans_list, pc_list)
         if perm is not None:
             terms["ass_loss"] = cfg.lambda_assign * assignment_loss(
-                pc_trans_list[:, actx.src_idx], actx.pc_tgt, perm)
+                select_rows(actx, pc_trans_list), actx.pc_tgt, perm)
         if flow_ctx is not None and cfg.use_flow_loss:
             terms["flow_loss"] = _flow_term(pc_trans_list, cano_pc, flow_ctx,
-                                            cfg)
+                                            cfg, cano_idx)
         total = functools.reduce(torch.add, terms.values())
         opt.zero_grad(set_to_none=True)
         total.backward()
@@ -324,7 +377,8 @@ def fit(forward_fn: ForwardFn, model: torch.nn.Module, cfg: FitConfig,
             price = torch.zeros(actx.pc_tgt.shape[:2], dtype=torch.float32,
                                 device=dev)
         band = assignment.resolve_band(cfg.assign_band, num_fps)
-        guard_active = (cfg.assign_band == -1 and cfg.assign_band_guard > 0
+        guard_active = (not rows and cfg.assign_band == -1
+                        and cfg.assign_band_guard > 0
                         and assignment.banded_points_available(
                             num_fps, num_fps, band, dev))
         gap = max(1, cfg.assign_gap)
@@ -342,7 +396,7 @@ def fit(forward_fn: ForwardFn, model: torch.nn.Module, cfg: FitConfig,
             with torch.no_grad():
                 pc_trans_list, _, _ = forward_fn(model, cano_pc, g0,
                                                  tau_fn(it0 + 1))
-                pc_src = pc_trans_list[:, actx.src_idx]
+                pc_src = select_rows(actx, pc_trans_list)
                 if guard_active and guard["band"] is None:
                     guard["band"], rel = probe(pc_src, price)
                     if guard["band"] == 0:

@@ -217,24 +217,25 @@ def test_parts_not_ported_yet_say_so(tmp_path):
         _, state = cli.build_kinematic_from_result(
             args, "robot", sample["cano_pc"], result, device="cpu")
         assert {tuple(sorted(e)) for e in state.edges} == {(0, 1), (0, 2)}
-    # a torch-format (zip) checkpoint
+    # a torch-format (zip) checkpoint loads since slice 5b; one of another
+    # canonical frame is refused
+    from reart_tpu_torch.checkpoint import save_torch_base
+    from reart_tpu_torch.models.base_model import BaseModel
+
     zipped = str(tmp_path / "model.pth.tar")
-    torch.save({"state_dict": {}}, zipped)
+    save_torch_base(zipped, BaseModel(20, 3, device="cpu"), 1.0, 1)
     args = cli.build_parser().parse_args(base + ["--resume", zipped])
-    with pytest.raises(NotImplementedError, match="slice 5"):
+    with pytest.raises(ValueError, match="cano_idx"):
         cli.run_sample(args, "robot", sample, str(tmp_path), device="cpu")
-    # the flags of slice 5, in every domain
+    # the one flag of slice 5c, in every domain
     args = cli.build_parser().parse_args(base)
     assert cli.setup_flow(args, sample, "cpu") is None
-    for domain, flag in (("robot", ["--snapshot_graph"]),
-                         ("real", ["--snapshot_metrics"]),
-                         ("robot", ["--save_vis"]),
-                         ("sapien", ["--batch_seq", "0,1"])):
+    for domain in ("robot", "sapien", "real"):
         args = cli.build_parser().parse_args(
-            [domain, "--device", "cpu", *flag])
-        with pytest.raises(NotImplementedError, match="slice 5"):
-            cli.main([domain, "--device", "cpu", *flag])
-        with pytest.raises(NotImplementedError, match="slice 5"):
+            [domain, "--device", "cpu", "--save_vis"])
+        with pytest.raises(NotImplementedError, match="slice 5c"):
+            cli.main([domain, "--device", "cpu", "--save_vis"])
+        with pytest.raises(NotImplementedError, match="slice 5c"):
             cli.run_sample(args, domain, sample, str(tmp_path), device="cpu")
     cfg = cli.fit_config(cli.build_parser().parse_args(
         base + ["--n_iter", "7", "--assign_sweeps", "9"]))
