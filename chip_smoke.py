@@ -130,13 +130,27 @@ Phases, each of which raises on failure (exit code != 0):
              sequential run without the band guard within SAPIEN_RUN_TOL;
              the banded auction (21, 4096, 4096) and blend3 at B = 21
              exact against their plain versions;
-  C. (last) phase 6's run with --snapshot_graph --snapshot_gap 100
-             --trace_dir: result.pkl bit-equal to phase 6's, three snapshot
-             rows, the trace naming the Chamfer kernel; phases 6's and 7's
-             models as torch-format checkpoints, `--resume` of each giving
-             the numbers of its model.ckpt.pkl.
+  C. (after B and 11) phase 6's run with --snapshot_graph --snapshot_gap
+             100 --trace_dir: result.pkl bit-equal to phase 6's, three
+             snapshot rows, the trace naming the Chamfer kernel; phases 6's
+             and 7's models as torch-format checkpoints, `--resume` of each
+             giving the numbers of its model.ckpt.pkl;
+  D. (last) the gif/html artifacts of phases 4 (the toy runs, finalize,
+             the toy projection and its --evaluate run, each on the card and
+             on the CPU), 6, 7, 10, 11 and B: each directory holds input.gif
+             (written before the run, as `main` does), recon.gif, gt.gif
+             where the sample has GT, seg.html, structure.html and
+             novel_<k>.html after a robot projection; every gif T frames of
+             320 x 320, looping, 300 ms a frame, every html the viewer with
+             sets of the cloud's size; card against CPU, where labels and
+             tree are held equal, the html byte-equal and the gifs within
+             the frame bars (GIF_MIN_IOU, GIF_CENTROID_PX; the toy robot's
+             two fits are reported only); matplotlib and imageio
+             never imported; the input.gif and finalize/viz seconds of each
+             full-width run.
 After the card's name, a "viz probe" line says whether matplotlib, imageio
-and PIL import on this machine (reported, not checked).
+and PIL are installed on this machine (found without importing them;
+reported, not checked).
 Phase 3 holds the banded kernel to its plain version at the sapien LAP
 ((7, 4096, 4096), w=1024) and at (9, 2048, 2048), w=512, cold and warm,
 carry off and on, and at w=128, w=M-128, B=1, B=20 and (1, 12288, 12288),
@@ -1693,11 +1707,12 @@ def read_result_txt(path):
                 (line.split(": ") for line in f.read().splitlines() if line)}
 
 
-def toy_robot_phase(dev, tmp):
+def toy_robot_phase(dev, tmp, arts):
     """A 3-part toy robot (a base and two hinged arms, 4 frames, 360
     points) through the whole relaxation run, 600 iterations with GT flow:
     on the card at the healthy bar, and equal to the same run on the CPU
-    from the same parameters and Gumbel draws within RUN_TOL."""
+    from the same parameters and Gumbel draws within RUN_TOL. Each run's
+    directory goes to phase D (`arts`)."""
     from reart_tpu_torch import cli
     from reart_tpu_torch.data.synth import make_toy_robot_sample
 
@@ -1713,10 +1728,15 @@ def toy_robot_phase(dev, tmp):
     runs = {}
     for where in ("cpu", dev):
         save_dir = os.path.join(tmp, f"toy_{torch.device(where).type}")
+        gif_s = arts.input_gif(sample, save_dir)
         cli.run_sample(args, "robot", sample, save_dir, device=where,
                        noise=noise)
+        arts.add(f"toy robot ({torch.device(where).type})", save_dir,
+                 sample, input_gif_s=gif_s)
         runs[str(where)] = read_result_txt(os.path.join(save_dir,
                                                         "result.txt"))
+    arts.pair("toy robot", os.path.join(tmp, "toy_cuda"),
+              os.path.join(tmp, "toy_cpu"), exact=False)
     card, cpu = runs[str(dev)], runs["cpu"]
     log(f"reference: toy robot on the card {card}")
     log(f"reference: toy robot on the CPU  {cpu}")
@@ -1732,14 +1752,15 @@ def toy_robot_phase(dev, tmp):
         f"{card['ted']}) and matches the CPU run within {RUN_TOL}")
 
 
-def finalize_phase(dev, tmp):
+def finalize_phase(dev, tmp, arts):
     """Everything after the fit (seg refine, graph stage, metrics, TED,
     energy with its presolve on the card) from fixed labels and poses, on
     the card against the CPU: the six-part table at T=5, N=2048 (2048^2 is
     past the presolve's threshold), its GT parts scattered over 12 pose
     columns with one part split in two, 150 points on a wrong part and
     every pose a little off. Labels, tree and TED must be equal, every
-    other number of result.txt within FINALIZE_RTOL."""
+    other number of result.txt within FINALIZE_RTOL; the artifacts go to
+    phase D, the html byte-equal."""
     from reart_tpu_torch import checkpoint, cli
     from reart_tpu_torch.data.synth import make_robot_sample
     from reart_tpu_torch.models import BaseModel
@@ -1766,8 +1787,11 @@ def finalize_phase(dev, tmp):
                           generator=torch.Generator().manual_seed(0))
         res = cli.finalize(args, "robot", sample, seg.copy(), trans.copy(),
                            model, None, save_dir, 1.0, device=where)
+        arts.add(f"finalize ({torch.device(where).type})", save_dir, sample)
         runs[str(where)] = (res, checkpoint.load_result(
             os.path.join(save_dir, "result.pkl")))
+    arts.pair("finalize", os.path.join(tmp, "finalize_cuda"),
+              os.path.join(tmp, "finalize_cpu"), exact=True)
     (card, card_pkl), (cpu, cpu_pkl) = runs[str(dev)], runs["cpu"]
     if card_pkl["joint_connection"] != cpu_pkl["joint_connection"] or not \
             np.array_equal(card_pkl["pred_cano_part"],
@@ -1807,7 +1831,7 @@ def within(card, cpu, tol, what):
     return diffs
 
 
-def kinematic_check_phase(dev, tmp):
+def kinematic_check_phase(dev, tmp, arts):
     """The projection stage of the toy robot (all joints revolute) from a
     result.pkl of GT labels, GT poses a little off and the GT tree:
     build_kinematic_from_result, a 30-iteration fit_kinematic with a LAP
@@ -1815,7 +1839,8 @@ def kinematic_check_phase(dev, tmp):
     line's run_sample on the card and on the CPU. Tree, labels, seg_ri and
     TED must be equal, the rest within KINEMATIC_RUN_TOL. Then the CPU
     run's model.ckpt.pkl is scored on both without a fit (--resume
-    --evaluate), within KINEMATIC_TOL."""
+    --evaluate), within KINEMATIC_TOL. The four directories go to phase D,
+    each pair's html byte-equal."""
     from reart_tpu_torch import checkpoint, cli
     from reart_tpu_torch.data.synth import make_toy_robot_sample
 
@@ -1830,12 +1855,18 @@ def kinematic_check_phase(dev, tmp):
                 "--assign_iter 0 --downsample 2 --assign_gap 1 "
                 "--assign_band 0")
     args = robot_args(f"{protocol} --base_result_path {base}", tmp)
+    novel = len(sample["novel_pose_list"])
     runs = {}
     for where in ("cpu", dev):
         save_dir = os.path.join(tmp, f"kin_{torch.device(where).type}")
+        gif_s = arts.input_gif(sample, save_dir)
         res = cli.run_sample(args, "robot", sample, save_dir, device=where)
+        arts.add(f"toy projection ({torch.device(where).type})", save_dir,
+                 sample, input_gif_s=gif_s, novel=novel)
         runs[str(where)] = (res, checkpoint.load_result(
             os.path.join(save_dir, "result.pkl")))
+    arts.pair("toy projection", os.path.join(tmp, "kin_cuda"),
+              os.path.join(tmp, "kin_cpu"), exact=True)
     (card, card_pkl), (cpu, cpu_pkl) = runs[str(dev)], runs["cpu"]
     if card_pkl["joint_connection"] != cpu_pkl["joint_connection"] or not \
             np.array_equal(card_pkl["pred_cano_part"],
@@ -1857,11 +1888,16 @@ def kinematic_check_phase(dev, tmp):
     scores = {}
     for where in ("cpu", dev):
         save_dir = os.path.join(tmp, f"kin_eval_{torch.device(where).type}")
+        gif_s = arts.input_gif(sample, save_dir)
         scores[str(where)] = cli.run_sample(args, "robot", sample, save_dir,
                                             device=where)
-        if os.listdir(save_dir) != ["result.txt"]:
-            raise AssertionError("projection check: --evaluate wrote "
-                                 f"{os.listdir(save_dir)}")
+        # result.txt and the artifacts; no result.pkl, no checkpoint
+        arts.add(f"toy projection, --evaluate "
+                 f"({torch.device(where).type})", save_dir, sample,
+                 input_gif_s=gif_s, novel=novel, evaluate=True)
+    arts.pair("toy projection, --evaluate",
+              os.path.join(tmp, "kin_eval_cuda"),
+              os.path.join(tmp, "kin_eval_cpu"), exact=True)
     card, cpu = scores[str(dev)], scores["cpu"]
     if card.keys() != cpu.keys() or "retarget_err" not in card:
         raise AssertionError(f"projection check: {sorted(card)} vs "
@@ -1916,7 +1952,7 @@ RUN_PROTOCOL = ("--n_iter 400 --assign_iter 300 --num_parts 20 "
                 "--downsample 4 --seg_refine 2")
 
 
-def run_phase(dev, tmp):
+def run_phase(dev, tmp, arts):
     """The relaxation run at full width: the six-part articulated table at
     T=10, N=4096, 20 part proposals, GT flow + assign losses, downsample 4,
     a short fit (300 + 100 iterations), then finalize with seg_refine 2."""
@@ -1929,10 +1965,13 @@ def run_phase(dev, tmp):
     reset_phases()
     for w in kernel_wrappers():
         w.launches = 0
+    gif_s = arts.input_gif(sample, save_dir)
     # no device is named: the entry points take the card by themselves
     results = cli.run_sample(args, "robot", sample, save_dir)
     torch.cuda.synchronize()
     launches = launch_counts()
+    arts.add("run", save_dir, sample, input_gif_s=gif_s,
+             viz_s=phase_report()["finalize/viz"])
 
     for k, v in results.items():
         if not math.isfinite(v):
@@ -1974,7 +2013,7 @@ def run_phase(dev, tmp):
 PROJECTION_ITERS = 200
 
 
-def projection_run_phase(dev, tmp, sample, base_result_path):
+def projection_run_phase(dev, tmp, sample, base_result_path, arts):
     """The projection run at full width: the relaxation run's result.pkl
     through `--model kinematic` with the documented projection protocol
     (`--assign_iter 0 --downsample 2 --assign_gap 1`, dense LAP): every
@@ -2001,6 +2040,7 @@ def projection_run_phase(dev, tmp, sample, base_result_path):
         fit_launches.update(launch_counts())
         return finalize(*a, **kw)
 
+    gif_s = arts.input_gif(sample, save_dir)
     cli.finalize = finalize_after_reading_counts
     try:
         # no device is named: the entry points take the card by themselves
@@ -2009,6 +2049,9 @@ def projection_run_phase(dev, tmp, sample, base_result_path):
         cli.finalize = finalize
     torch.cuda.synchronize()
     launches = launch_counts()
+    arts.add("projection run", save_dir, sample, input_gif_s=gif_s,
+             viz_s=phase_report()["finalize/viz"],
+             novel=len(sample["novel_pose_list"]))
 
     for k, v in results.items():
         if not math.isfinite(v):
@@ -2968,11 +3011,12 @@ def _record_guard_probes():
     return seen, restore
 
 
-def _drive(args, domain, sample, save_dir, what, probes=None):
+def _drive(args, domain, sample, save_dir, what, probes=None, arts=None):
     """One run of the command line's main path on the card (no device is
     named: the entry points take the card by themselves), every launch
-    count set to 0 just before and read just after. Returns (results,
-    launches, seconds per stage, wall seconds)."""
+    count set to 0 just before and read just after; with `arts`, input.gif
+    first, as `main` writes it, and the directory goes to phase D. Returns
+    (results, launches, seconds per stage, wall seconds)."""
     from reart_tpu_torch import cli
     from reart_tpu_torch.profiling import phase_report, reset_phases
 
@@ -2981,11 +3025,15 @@ def _drive(args, domain, sample, save_dir, what, probes=None):
         probes.clear()
     for w in kernel_wrappers():
         w.launches = 0
+    gif_s = arts.input_gif(sample, save_dir) if arts is not None else None
     t0 = time.perf_counter()
     results = cli.run_sample(args, domain, sample, save_dir)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = launch_counts()
+    if arts is not None:
+        arts.add(what, save_dir, sample, input_gif_s=gif_s,
+                 viz_s=phase_report()["finalize/viz"])
     for k, v in results.items():
         if not math.isfinite(v):
             raise AssertionError(f"{what}: {k} = {v} is not finite")
@@ -3046,7 +3094,7 @@ def log_joint_rotations(what, result_path):
         + "; ".join(parts))
 
 
-def sapien_chain_phase(dev, tmp, keep_dir=None):
+def sapien_chain_phase(dev, tmp, arts, keep_dir=None):
     """The sapien domain at full width: `make_sapien_scene`, 8 views x 4096
     points, 6 parts (three revolute and two prismatic joints); the
     relaxation run from the scene's --flow_file at --downsample 1 (a (7,
@@ -3069,7 +3117,7 @@ def sapien_chain_phase(dev, tmp, keep_dir=None):
     try:
         save_dir = os.path.join(tmp, "sapien_base", "0")
         out["relaxation"] = _drive(args, "sapien", sample, save_dir,
-                                   "sapien relaxation run", probes)
+                                   "sapien relaxation run", probes, arts)
         _log_probes("sapien relaxation run", probes, args.assign_band_guard)
         base = os.path.join(save_dir, "result.pkl")
         log_joint_rotations("sapien relaxation run", base)
@@ -3088,7 +3136,7 @@ def sapien_chain_phase(dev, tmp, keep_dir=None):
                       *SAPIEN_PROJECTION.split()])
         out["projection"] = _drive(kargs, "sapien", sample,
                                    os.path.join(tmp, "sapien_kin", "0"),
-                                   "sapien projection run", probes)
+                                   "sapien projection run", probes, arts)
         _log_probes("sapien projection run", probes, args.assign_band_guard)
     finally:
         restore()
@@ -3111,7 +3159,7 @@ def sapien_chain_phase(dev, tmp, keep_dir=None):
     return {k: v[1] for k, v in out.items()}, out["relaxation"][0]
 
 
-def real_chain_phase(dev, tmp):
+def real_chain_phase(dev, tmp, arts):
     """The real domain at full width: `write_real_scene`, 6 OBJ frames (a
     body, a hinged flap, a slider); `corr --data_domain real` trains the
     backbone on them (REAL_CORR_STEPS steps, batch 4 x 1024 points); the
@@ -3145,7 +3193,7 @@ def real_chain_phase(dev, tmp):
     sample = cli.dataset_sample(cli.load_dataset(args))
     save_dir = os.path.join(tmp, "real_base", "scans")
     out["relaxation"] = _drive(args, "real", sample, save_dir,
-                               "real relaxation run")
+                               "real relaxation run", arts=arts)
     base = os.path.join(save_dir, "result.pkl")
     if not checkpoint.load_result(base)["joint_connection"]:
         raise AssertionError("real relaxation run: a single part, no tree")
@@ -3155,7 +3203,7 @@ def real_chain_phase(dev, tmp):
                   base, "--n_iter", "100", "--assign_iter", "50"])
     out["projection"] = _drive(kargs, "real", sample,
                                os.path.join(tmp, "real_kin", "scans"),
-                               "real projection run")
+                               "real projection run", arts=arts)
     for stage in ("relaxation", "projection"):
         results, launches = out[stage][:2]
         if "seg_ri" in results or "cd_err" not in results:
@@ -3624,19 +3672,64 @@ def timed_energies():
 
 
 def viz_probe():
-    """Whether the packages of the JAX package's viz.py import on this
-    machine: evidence for the port of the gif/html artifacts. A missing
-    package is reported, not a failure."""
-    import importlib
+    """Whether the packages of the JAX package's viz.py are installed on
+    this machine, found without importing them (phase D fails if the port
+    imported matplotlib or imageio). A missing package is reported, not a
+    failure; the port's artifacts need only PIL."""
+    import importlib.metadata
+    import importlib.util
 
     found = []
-    for name in ("matplotlib", "imageio", "PIL"):
+    for name, dist in (("matplotlib", "matplotlib"), ("imageio", "imageio"),
+                       ("PIL", "pillow")):
+        if importlib.util.find_spec(name) is None:
+            found.append(f"{name} absent")
+            continue
         try:
-            mod = importlib.import_module(name)
-            found.append(f"{name} {getattr(mod, '__version__', '?')}")
-        except ImportError as e:
-            found.append(f"{name} absent ({e})")
+            found.append(f"{name} {importlib.metadata.version(dist)}")
+        except importlib.metadata.PackageNotFoundError:
+            found.append(f"{name} (no version)")
     log("viz probe: " + ", ".join(found))
+
+
+class ArtifactRuns:
+    """The runs whose gif/html artifacts phase D checks: each directory
+    with what its sample says it must hold, the seconds of its input.gif
+    and of its `finalize/viz` stage, and the pairs of runs on the card and
+    on the CPU to compare."""
+
+    def __init__(self):
+        self.runs = []
+        self.pairs = []
+
+    @staticmethod
+    def input_gif(sample, save_dir):
+        """`main`'s input.gif before a run (`cli.write_input_gif`), in
+        seconds."""
+        from reart_tpu_torch import cli
+
+        t0 = time.perf_counter()
+        cli.write_input_gif(sample, save_dir)
+        return time.perf_counter() - t0
+
+    def add(self, what, save_dir, sample, input_gif_s=None, viz_s=None,
+            novel=0, evaluate=False):
+        """A run in save_dir on `sample`: input.gif when input_gif_s is
+        given, novel_<k>.html for k < novel, no result.pkl or checkpoint
+        under --evaluate."""
+        self.runs.append(dict(
+            what=what, save_dir=save_dir,
+            frames=len(sample["complete_pc_list"]),
+            points=len(sample["cano_pc"]), gt="gt_flow_list" in sample,
+            input_gif_s=input_gif_s, viz_s=viz_s, novel=novel,
+            evaluate=evaluate))
+
+    def pair(self, what, card_dir, cpu_dir, exact):
+        """The same run on the card and on the CPU. Where `exact` (labels
+        and tree already held equal) seg.html and structure.html must be
+        byte-equal and every gif within the frame bars; else (two fits
+        that may part by an ulp's worth of labels) both are reported."""
+        self.pairs.append((what, card_dir, cpu_dir, exact))
 
 
 def hold_batched(stats, name, label, got, ref, kernel_ms, plain_ms,
@@ -3816,7 +3909,7 @@ def batched_candidate_kernels(dev, stats, complete):
         f"{stats['auction_solve_resident']['ms_first_9_of_warm']:.4f} ms")
 
 
-def batch_seq_phase(dev, tmp, stats, sequential):
+def batch_seq_phase(dev, tmp, stats, sequential, arts):
     """Phase B: `sapien --batch_seq 0,1,2` through `cli.main` under
     SAPIEN_PROTOCOL on three different full-width scenes under one root (8
     views x 4096 points, 6 parts; scene k drawn from seed k with its joints
@@ -3872,6 +3965,11 @@ def batch_seq_phase(dev, tmp, stats, sequential):
             + ", ".join(f"{k} {v:.4f}" for k, v in res.items()))
     if results[1] == results[0] or results[2] == results[0]:
         raise AssertionError("batch_seq: two scenes gave equal results")
+    for i in range(3):  # finalize/viz is the three finalizes' sum
+        arts.add(f"batch_seq {i}", os.path.join(save_root, str(i)),
+                 SapienDataset(root)[i],
+                 input_gif_s=seconds[f"input_gif/{i}"],
+                 viz_s=seconds["finalize/viz"] / 3)
     log(f"batch_seq: {wall:.2f} s; seconds per stage "
         + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items()))
     log(f"batch_seq: kernel launches {launches}")
@@ -4071,6 +4169,157 @@ def snapshot_phase(dev, tmp, sample, run_result):
     return launches
 
 
+# the gifs of a run on the card against the same run on the CPU (phase D):
+# each frame's mask of pixels with any channel below GIF_MASK_LEVEL,
+# dilated by GIF_DILATE px, overlaps at least GIF_MIN_IOU, and the masks'
+# centroids lie within GIF_CENTROID_PX (the bars the CPU tests hold the
+# renderer to against the JAX package's matplotlib frames)
+GIF_MASK_LEVEL = 240
+GIF_DILATE = 2
+GIF_MIN_IOU = 0.85
+GIF_CENTROID_PX = 2.0
+# the frame time the port writes (ROADMAP §3 item 28)
+GIF_FRAME_MS = 300
+
+
+def gif_frames(path, frames):
+    """A gif's frames as (H, W, 3) uint8 after checking it: 320 x 320,
+    looping, 300 ms a frame and `frames` frames (PIL folds a frame equal to
+    the one before into it and adds the durations, so the durations sum to
+    frames x 300 ms)."""
+    from PIL import Image
+
+    out, total = [], 0
+    with Image.open(path) as im:
+        if im.size != (320, 320) or im.info.get("loop") != 0:
+            raise AssertionError(f"{path}: size {im.size}, loop "
+                                 f"{im.info.get('loop')}")
+        for k in range(im.n_frames):
+            im.seek(k)
+            ms = im.info.get("duration")
+            if not ms or ms % GIF_FRAME_MS:
+                raise AssertionError(f"{path}: frame {k} lasts {ms} ms")
+            total += ms
+            out.append(np.asarray(im.convert("RGB")))
+    if total != frames * GIF_FRAME_MS:
+        raise AssertionError(f"{path}: {total} ms over {len(out)} frames, "
+                             f"expected {frames} frames of {GIF_FRAME_MS}")
+    return out
+
+
+def html_sets(path):
+    """The point sets of a canvas viewer: [(points, colours)]."""
+    with open(path) as f:
+        text = f.read()
+    if "<canvas" not in text or "const DATA=" not in text:
+        raise AssertionError(f"{path}: not the canvas viewer")
+    data = json.loads(text.split("const DATA=")[1].split(";\n")[0])
+    return [(len(d["p"]) // 3, len(d["c"])) for d in data]
+
+
+def _frame_mask(frame):
+    return (np.asarray(frame) < GIF_MASK_LEVEL).any(axis=-1)
+
+
+def _dilated(mask):
+    r = GIF_DILATE
+    padded = np.pad(mask, r)
+    out = np.zeros_like(mask)
+    for dr in range(2 * r + 1):
+        for dc in range(2 * r + 1):
+            out |= padded[dr:dr + mask.shape[0], dc:dc + mask.shape[1]]
+    return out
+
+
+def artifacts_phase(arts):
+    """Phase D: the artifacts of every recorded run. Each directory holds
+    exactly the gifs and html files its run writes: input.gif (runs through
+    the command line's main path), recon.gif, gt.gif where the sample has
+    GT flow, seg.html, structure.html, novel_<k>.html after a robot
+    projection; each gif T frames of 320 x 320, looping, 300 ms a frame;
+    each html the canvas viewer with sets of the cloud's size. Card against
+    CPU, where labels and tree are held equal: the html byte-equal, the
+    gifs within the frame bars (other pairs reported). matplotlib and
+    imageio were never imported.
+    Prints each full-width run's input.gif and finalize/viz seconds."""
+    for run in arts.runs:
+        where, t, n = run["save_dir"], run["frames"], run["points"]
+        names = set(os.listdir(where))
+        want = {"recon.gif", "seg.html", "structure.html", "result.txt"}
+        want |= {"input.gif"} if run["input_gif_s"] is not None else set()
+        want |= {"gt.gif"} if run["gt"] else set()
+        want |= {f"novel_{k}.html" for k in range(run["novel"])}
+        extra = {"result.pkl", "model.ckpt.pkl"}
+        if run["evaluate"]:
+            if names & extra:
+                raise AssertionError(f"{run['what']}: --evaluate wrote "
+                                     f"{sorted(names & extra)}")
+        else:
+            want |= extra
+        if names != want:
+            raise AssertionError(f"{run['what']}: {where} holds "
+                                 f"{sorted(names)}, expected {sorted(want)}")
+        for name in sorted(names):
+            if name.endswith(".gif"):
+                gif_frames(os.path.join(where, name), t)
+        two = [(n, n), (n, n)]
+        for name, sets in (("seg.html", two if run["gt"] else [(n, n)]),
+                           *((f"novel_{k}.html", two)
+                             for k in range(run["novel"]))):
+            got = html_sets(os.path.join(where, name))
+            if got != sets:
+                raise AssertionError(f"{run['what']}: {name} sets {got}, "
+                                     f"expected {sets}")
+        structure = html_sets(os.path.join(where, "structure.html"))
+        if structure[0] != (n, n) or len(structure) not in (2, 3):
+            raise AssertionError(f"{run['what']}: structure.html sets "
+                                 f"{structure}")
+        log(f"artifacts: {run['what']}: {sorted(names - {'result.txt'} - extra)}"
+            f" ({t} frames, {n} points)")
+    for what, card_dir, cpu_dir, exact in arts.pairs:
+        equal = []
+        for name in ("seg.html", "structure.html"):
+            with open(os.path.join(card_dir, name), "rb") as a, \
+                    open(os.path.join(cpu_dir, name), "rb") as b:
+                equal.append(a.read() == b.read())
+        if exact and not all(equal):
+            raise AssertionError(f"artifacts: {what}: seg.html, "
+                                 f"structure.html byte-equal {equal}")
+        t = next(r["frames"] for r in arts.runs if r["save_dir"] == card_dir)
+        worst_iou, worst_shift = 1.0, 0.0
+        for name in sorted(os.listdir(card_dir)):
+            if not name.endswith(".gif"):
+                continue
+            for a, b in zip(gif_frames(os.path.join(card_dir, name), t),
+                            gif_frames(os.path.join(cpu_dir, name), t)):
+                ma, mb = _frame_mask(a), _frame_mask(b)
+                da, db = _dilated(ma), _dilated(mb)
+                iou = (da & db).sum() / max((da | db).sum(), 1)
+                shift = max(np.abs(np.mean(np.nonzero(ma), axis=1)
+                                   - np.mean(np.nonzero(mb), axis=1)))
+                worst_iou = min(worst_iou, iou)
+                worst_shift = max(worst_shift, shift)
+        if exact and (worst_iou < GIF_MIN_IOU
+                      or worst_shift > GIF_CENTROID_PX):
+            raise AssertionError(f"artifacts: {what}: the card's gifs against "
+                                 f"the CPU's: IoU {worst_iou}, centroid "
+                                 f"{worst_shift} px")
+        log(f"artifacts: {what}, card against CPU: seg.html, structure.html "
+            f"byte-equal {equal}; gifs: the least IoU {worst_iou:.4f}, the "
+            f"largest centroid shift {worst_shift:.3f} px")
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("matplotlib", "imageio"))
+    if loaded:
+        raise AssertionError(f"artifacts: the port imported {loaded}")
+    for run in arts.runs:
+        if run["viz_s"] is not None:
+            log(f"artifacts: {run['what']}: input.gif "
+                f"{run['input_gif_s']:.3f} s, finalize/viz "
+                f"{run['viz_s']:.3f} s")
+    log(f"artifacts: {len(arts.runs)} directories, {len(arts.pairs)} card "
+        "against CPU pairs; matplotlib and imageio never imported")
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--keep_dir", default=None,
@@ -4095,19 +4344,20 @@ def main():
 
     card = timed("device", device_phase)
     viz_probe()
+    arts = ArtifactRuns()
     timed("build", build_phase)
     stats = timed("kernels", kernel_phase, dev)
     timed("reference fit", reference_phase, dev)
     with tempfile.TemporaryDirectory() as tmp:
-        timed("toy robot", toy_robot_phase, dev, tmp)
-        timed("finalize", finalize_phase, dev, tmp)
-        timed("projection check", kinematic_check_phase, dev, tmp)
+        timed("toy robot", toy_robot_phase, dev, tmp, arts)
+        timed("finalize", finalize_phase, dev, tmp, arts)
+        timed("projection check", kinematic_check_phase, dev, tmp, arts)
         timed("backbone check", backbone_check_phase, dev)
         fit_launches = timed("nao fit", fit_phase, dev)
         run_launches, sample, result_path = timed("run", run_phase, dev,
-                                                  tmp)
+                                                  tmp, arts)
         projection_launches = timed("projection run", projection_run_phase,
-                                    dev, tmp, sample, result_path)
+                                    dev, tmp, sample, result_path, arts)
         corr_launches, seq_dir, norm_file, corr_path = timed(
             "corr", corr_train_phase, dev, tmp, sample)
         corr_flow_launches = timed("corr-flow run", corr_flow_run_phase, dev,
@@ -4122,12 +4372,13 @@ def main():
                                  seq_sweep)
         timed("toy sapien", toy_sapien_phase, dev, tmp)
         sapien, sapien_run = timed("sapien chain", sapien_chain_phase, dev,
-                                   tmp, args.keep_dir)
+                                   tmp, arts, args.keep_dir)
         batch_seq_launches = timed("batch_seq", batch_seq_phase, dev, tmp,
-                                   stats, sapien_run)
-        real = timed("real chain", real_chain_phase, dev, tmp)
+                                   stats, sapien_run, arts)
+        real = timed("real chain", real_chain_phase, dev, tmp, arts)
         snapshot_launches = timed("snapshots", snapshot_phase, dev, tmp,
                                   sample, result_path)
+        timed("artifacts", artifacts_phase, arts)
     log("seconds per phase: " + ", ".join(f"{k} {v:.1f}"
                                           for k, v in seconds.items()))
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s")

@@ -47,10 +47,16 @@ also the graph stage and the energy), `--trace_dir` writes a torch.profiler
 trace of the fit, and `--resume` takes the reference's torch-format (zip)
 checkpoints too.
 
+Every run writes the JAX package's artifacts beside its result files:
+`input.gif` of the observed sequence before the fit; after it
+`recon.gif`, `gt.gif` (where the sample has GT), `seg.html` and
+`structure.html`, and on a robot's projection run `novel_<k>.html` of each
+retargeted pose (viz.py: numpy and PIL only). `--save_vis` is accepted and
+changes nothing, as in the JAX package.
+
 Everything runs on the CUDA device unless `--device cpu` asks for the plain
 PyTorch versions. Tensors stay on that device; the combinatorial graph
-logic is numpy on the host. `--save_vis` raises NotImplementedError, naming
-slice 5c, and the gif/html artifacts are not written.
+logic and the artifacts are numpy on the host.
 """
 
 from __future__ import annotations
@@ -259,7 +265,8 @@ def _common_args(p: argparse.ArgumentParser, domain: str):
                         "stage (denoise, merge, MST) and the selection "
                         "energy of each snapshot")
     p.add_argument("--save_vis", action="store_true",
-                   help="ported in slice 5c: raises")
+                   help="accepted for the reference's command lines; the "
+                        "artifacts are always written")
     p.add_argument("--trace_dir", default=None, type=str,
                    help="write a torch.profiler trace of the fit here "
                         "(Chrome trace; the card's kernels on a CUDA run)")
@@ -1047,12 +1054,15 @@ def finalize(args, domain: str, sample, seg_part, trans_list, params, state,
     domain, merging and the MST read poses aligned to the root part, the
     errors are in the data's units, sapien adds the full-flow error and the
     per- and multi-scan RI, and there is no retargeting, no TED and no group
-    term in the energy. With --evaluate there is no energy and only
-    result.txt is written. `snapshot_rows` (SnapshotEvaluator.finish) follow
-    the numbers in result.txt. Runs on `device` (the card when None).
-    Returns the dict of numbers that result.txt lists."""
+    term in the energy. With --evaluate there is no energy, no result.pkl
+    and no checkpoint. `snapshot_rows` (SnapshotEvaluator.finish) follow
+    the numbers in result.txt. The artifacts follow (stage "viz", with
+    --evaluate too): recon.gif of the reconstruction, gt.gif where the
+    sample has GT flow, seg.html and structure.html. Runs on `device` (the
+    card when None). Returns the dict of numbers that result.txt lists."""
     from reart_tpu_torch import checkpoint as ckpt
     from reart_tpu_torch import metrics as M
+    from reart_tpu_torch import viz
     from reart_tpu_torch.graph import (
         compute_root_cost,
         compute_ted,
@@ -1125,8 +1135,9 @@ def finalize(args, domain: str, sample, seg_part, trans_list, params, state,
 
     results = {}
     unit = 100.0 if robot else 1.0  # robot errors in cm
+    has_gt = "gt_flow_list" in sample
     with sub("metrics"):
-        if "gt_flow_list" in sample:
+        if has_gt:
             if robot:
                 pred_flow = complete_pred[1:] - complete_pred[:-1]
                 epe, acc1, acc2, angle = M.eval_flow(
@@ -1173,7 +1184,8 @@ def finalize(args, domain: str, sample, seg_part, trans_list, params, state,
 
             with sub("ik"):
                 results["retarget_err"] = ik(sample, "kinematic", params,
-                                             state=state, tau=tau)
+                                             state=state, tau=tau,
+                                             save_dir=save_dir, save_vis=True)
         else:
             results["retarget_err"] = 9999.0
 
@@ -1205,6 +1217,22 @@ def finalize(args, domain: str, sample, seg_part, trans_list, params, state,
                 {k: v for k, v in sample.items() if k not in SIDE_KEYS})
             ckpt.save_checkpoint(os.path.join(save_dir, "model.ckpt.pkl"),
                                  params, tau, cano_idx, state=state)
+
+    with sub("viz"):
+        cano_np = cano_pc.cpu().numpy()
+        viz.vis_pc_seq(complete_pred, pred_part=seg_part, name="reconstruct",
+                       save_path=os.path.join(save_dir, "recon.gif"))
+        if has_gt:
+            viz.vis_pc_seq(sample["complete_gt_pc_list"],
+                           pred_part=sample["gt_cano_part"], name="gt",
+                           save_path=os.path.join(save_dir, "gt.gif"))
+            viz.vis_pc(cano_np, seg_part, gt_part=sample["gt_cano_part"],
+                       save_path=os.path.join(save_dir, "seg.html"))
+        else:
+            viz.vis_pc(cano_np, seg_part,
+                       save_path=os.path.join(save_dir, "seg.html"))
+        viz.vis_structure(cano_np, seg_part, joint_connection_list,
+                          save_path=os.path.join(save_dir, "structure.html"))
 
     lines = [f"{k}: {v:.3f}" for k, v in results.items()]
     if snapshot_rows:
@@ -1277,11 +1305,11 @@ def run_sample(args, domain: str, sample, save_dir: str, device=None,
     --manual_seed. The fit leaves its resume file (`fit_state.pkl`) in
     `save_dir` while it runs. The kinematic stage's tree search runs here;
     --auto_cano is `main`'s, which picks the canonical frame before it
-    loads the sample. Returns finalize's results."""
+    loads the sample, and so is input.gif (`write_input_gif`). Returns
+    finalize's results."""
     from reart_tpu_torch.models.base_model import gumbel_noise
     from reart_tpu_torch.train import fit_base, fit_kinematic
 
-    _not_ported_flags(args)
     dev = resolve_device(device)
     os.makedirs(save_dir, exist_ok=True)
     cano_pc = torch.as_tensor(sample["cano_pc"], dtype=torch.float32,
@@ -1352,11 +1380,15 @@ def _final_forward(params, state, cano_pc, shape):
     return seg, trans
 
 
-def _not_ported_flags(args) -> None:
-    """Raise for a flag whose feature is ported in slice 5c."""
-    if getattr(args, "save_vis", False):
-        raise NotImplementedError("--save_vis: ported in slice 5c (the "
-                                  "gif/html artifacts, viz.py)")
+def write_input_gif(sample, save_dir: str) -> None:
+    """`<save_dir>/input.gif` of the sample's observed frames
+    (`complete_pc_list`), which every run writes before its fit; creates
+    save_dir."""
+    from reart_tpu_torch import viz
+
+    os.makedirs(save_dir, exist_ok=True)
+    viz.vis_pc_seq(sample["complete_pc_list"], name="input",
+                   save_path=os.path.join(save_dir, "input.gif"))
 
 
 def _stack_flow_contexts(ctxs):
@@ -1382,7 +1414,8 @@ def run_batch_seq(args, dataset, device=None):
     """`sapien --batch_seq i,j,k`: the relaxation stage of several sequences
     (one shape) as one rows fit on the device (parallel.fit_base_sequences,
     under phase "fit"), then each sequence's finalize into
-    `<save_root>/<idx>/` (phase "finalize/<idx>"). Each sequence has its
+    `<save_root>/<idx>/` (phase "finalize/<idx>", after the sequence's
+    input.gif, phase "input_gif/<idx>"). Each sequence has its
     own flow anchors, `{idx}` in --flow_file formatted with its index. The
     rows fit has no band guard, no resume and no snapshots. Returns the
     finalize results, one a sequence."""
@@ -1421,7 +1454,8 @@ def run_batch_seq(args, dataset, device=None):
     results = []
     for i, sample, (params, seg, trans) in zip(idxs, samples, fits):
         save_dir = os.path.join(args.save_root, str(i))
-        os.makedirs(save_dir, exist_ok=True)
+        with phase_timer(f"input_gif/{i}", verbose=not args.silence):
+            write_input_gif(sample, save_dir)
         with phase_timer(f"finalize/{i}", verbose=not args.silence):
             results.append(finalize(args, "sapien", sample, seg, trans,
                                     params, None, save_dir, args.end_tau,
@@ -1436,7 +1470,6 @@ def main(argv=None):
     if args.domain == "corr":
         return run_train_corr(args, device)
 
-    _not_ported_flags(args)
     sapien = args.domain == "sapien"
     if sapien and args.batch_seq:
         results = run_batch_seq(args, load_dataset(args), device)
@@ -1466,8 +1499,10 @@ def main(argv=None):
         args.cano_idx = best
         sample = dataset_sample(load_dataset(args), idx)
     seq_name = str(idx) if sapien else args.seq_path.rstrip("/").split("/")[-1]
-    results = run_sample(args, args.domain, sample,
-                         os.path.join(args.save_root, seq_name), device)
+    save_dir = os.path.join(args.save_root, seq_name)
+    with phase_timer("input_gif", verbose=not args.silence):
+        write_input_gif(sample, save_dir)
+    results = run_sample(args, args.domain, sample, save_dir, device)
     if not args.silence:
         print(f"[phases] {phase_report()}")
     return results

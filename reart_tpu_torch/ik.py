@@ -16,6 +16,8 @@ steps at lr 0.1 start.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -113,13 +115,16 @@ def ik_solve_base(params, sparse_cano_pc, sparse_novel_pc, noise,
 
 def ik(sample: dict, model_kind: str, params, state=None,
        generator: torch.Generator | None = None, tau: float = 1.0,
-       n_iter: int = 200, verbose: bool = False, device=None) -> float:
+       n_iter: int = 200, save_dir=None, save_vis: bool = False,
+       verbose: bool = False, device=None) -> float:
     """Retargeting over a sequence's novel poses. `sample` is the dataset's
     dict with what the JAX package reads off the dataset object beside it:
     `pose_list` (per frame {part: 4x4}), `cano_idx` and `novel_pose_list`.
     Runs on the model's device. `generator` draws the base model's Gumbel
-    noise. Returns the mean retarget error x100 (cm), 9999.0 without novel
-    poses. The html views of the JAX package are not written."""
+    noise. With `save_vis` and a `save_dir`, writes `novel_<k>.html` of each
+    novel pose k: the cloud carried by the solved pose, coloured by the
+    forward's labels, beside the GT novel cloud in the GT parts. Returns
+    the mean retarget error x100 (cm), 9999.0 without novel poses."""
     dev = device_of(*params.parameters(), device=device)
     cano_pose = sample["pose_list"][sample["cano_idx"]]
     cano_np = np.asarray(sample["cano_pc"])
@@ -129,7 +134,7 @@ def ik(sample: dict, model_kind: str, params, state=None,
         return torch.as_tensor(x, dtype=torch.float32, device=dev)
 
     errs = []
-    for novel_pose in sample["novel_pose_list"]:
+    for k, novel_pose in enumerate(sample["novel_pose_list"]):
         novel = sparse_sample_novel_state(
             cano_np, np.asarray(sample["gt_cano_part"]), cano_pose,
             novel_pose)
@@ -139,8 +144,8 @@ def ik(sample: dict, model_kind: str, params, state=None,
             theta, _ = ik_solve_kinematic(params, state, s_cano, s_novel,
                                           n_iter=n_iter)
             with torch.no_grad():
-                pc_trans, _, _ = kinematic_forward(params, state, cano_pc,
-                                                   theta_list=theta)
+                pc_trans, seg_part, _ = kinematic_forward(
+                    params, state, cano_pc, theta_list=theta)
         else:
             p = params.num_parts
             opt, _ = ik_solve_base(
@@ -148,7 +153,7 @@ def ik(sample: dict, model_kind: str, params, state=None,
                 gumbel_noise((s_cano.shape[0], p), generator, dev), tau=tau,
                 n_iter=n_iter)
             with torch.no_grad():
-                pc_trans, _, _ = base_forward(
+                pc_trans, seg_part, _ = base_forward(
                     params, cano_pc,
                     gumbel_noise((cano_pc.shape[0], p), generator, dev), tau,
                     **opt)
@@ -158,4 +163,11 @@ def ik(sample: dict, model_kind: str, params, state=None,
         if verbose:
             print(f"Novel retarget err: {err:.3f}")
         errs.append(err)
+        if save_vis and save_dir is not None:
+            from reart_tpu_torch.viz import vis_pc
+
+            os.makedirs(save_dir, exist_ok=True)
+            vis_pc(pred, seg_part.cpu().numpy(), pc_gt=novel["novel_pc"],
+                   gt_part=sample["gt_cano_part"],
+                   save_path=os.path.join(save_dir, f"novel_{k}.html"))
     return float(np.mean(errs)) if errs else 9999.0

@@ -227,16 +227,21 @@ def test_parts_not_ported_yet_say_so(tmp_path):
     args = cli.build_parser().parse_args(base + ["--resume", zipped])
     with pytest.raises(ValueError, match="cano_idx"):
         cli.run_sample(args, "robot", sample, str(tmp_path), device="cpu")
-    # the one flag of slice 5c, in every domain
     args = cli.build_parser().parse_args(base)
     assert cli.setup_flow(args, sample, "cpu") is None
+    # --save_vis (slice 5c) is accepted in every domain and changes
+    # nothing: every run writes the artifacts, as in the JAX package
     for domain in ("robot", "sapien", "real"):
-        args = cli.build_parser().parse_args(
-            [domain, "--device", "cpu", "--save_vis"])
-        with pytest.raises(NotImplementedError, match="slice 5c"):
-            cli.main([domain, "--device", "cpu", "--save_vis"])
-        with pytest.raises(NotImplementedError, match="slice 5c"):
-            cli.run_sample(args, domain, sample, str(tmp_path), device="cpu")
+        assert cli.build_parser().parse_args([domain, "--save_vis"]).save_vis
+    written = {}
+    for extra in ([], ["--save_vis"]):
+        save_dir = str(tmp_path / f"vis{len(extra)}")
+        cli.run_sample(cli.build_parser().parse_args(
+            base + ["--n_iter", "2", "--num_parts", "5", "--silence"]
+            + extra), "robot", sample, save_dir, device="cpu")
+        written[len(extra)] = sorted(os.listdir(save_dir))
+    assert written[0] == written[1]
+    assert {"recon.gif", "seg.html", "structure.html"} <= set(written[1])
     cfg = cli.fit_config(cli.build_parser().parse_args(
         base + ["--n_iter", "7", "--assign_sweeps", "9"]))
     assert (cfg.n_iter, cfg.assign_sweeps, cfg.always_recon) == (7, 9, False)
@@ -384,7 +389,7 @@ def test_two_stage_chain_on_the_toy_robot(robot_dir, tmp_path):
     the command line: the healthy bar of the kinematic stage, a finite
     retargeting error, and a checkpoint the JAX package restores. Then
     `--resume --evaluate` from that checkpoint: the same numbers, no fit,
-    no energy, no result.pkl."""
+    no energy, no result.pkl (the artifacts only)."""
     root = str(tmp_path / "exp")
     common = ["robot", "--device", "cpu", "--seq_path", robot_dir,
               "--num_points", "360", "--use_flow_loss", "--flow_provider",
@@ -418,7 +423,10 @@ def test_two_stage_chain_on_the_toy_robot(robot_dir, tmp_path):
     again = cli.main(kinematic + [
         "--save_root", eval_root, "--evaluate", "--resume",
         os.path.join(kin_dir, "model.ckpt.pkl")])
-    assert os.listdir(os.path.join(eval_root, seq)) == ["result.txt"]
+    # no result.pkl or checkpoint; the artifacts, as in the JAX package
+    assert sorted(os.listdir(os.path.join(eval_root, seq))) == [
+        "gt.gif", "input.gif", "novel_0.html", "recon.gif", "result.txt",
+        "seg.html", "structure.html"]
     assert "total_err" not in again and "ass_err" not in again
     for k, v in again.items():
         np.testing.assert_allclose(v, results[k], rtol=1e-5, err_msg=k)
