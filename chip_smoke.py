@@ -2386,12 +2386,16 @@ def device_time_by_name(prof):
     device-side events only (an operator's entry repeats its kernels)."""
     from torch.autograd import DeviceType
 
+    from reart_tpu_torch import profiling
+
+    spans = {s["name"] for s in profiling.snapshot()["spans"]}
     out = {}
     for evt in prof.key_averages():
-        # the optimizer's own annotations ("Optimizer.step#Adam.step") are
-        # device-side ranges, not kernels: they repeat their kernels
+        # the optimizer's own annotations ("Optimizer.step#Adam.step") and
+        # the program's spans are device-side ranges, not kernels: they
+        # repeat their kernels
         if (evt.device_type != DeviceType.CUDA
-                or evt.key.startswith("Optimizer.")):
+                or evt.key.startswith("Optimizer.") or evt.key in spans):
             continue
         t = getattr(evt, "self_device_time_total", None)
         if t is None:

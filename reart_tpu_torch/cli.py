@@ -44,8 +44,14 @@ as one rows fit (parallel/rows.py), then finalizes each into
 `<save_root>/<idx>/`. `--snapshot_metrics` adds a metric row of the live
 fit every `--snapshot_gap` iterations to result.txt (`--snapshot_graph`
 also the graph stage and the energy), `--trace_dir` writes a torch.profiler
-trace of the fit, and `--resume` takes the reference's torch-format (zip)
-checkpoints too.
+trace of the fit (of the training, on `corr`), and `--resume` takes the
+reference's torch-format (zip) checkpoints too. Beside the trace
+(`<host>_<pid>.<ms>.pt.trace.json.gz`) `--trace_dir` writes `spans.json`
+(profiling.py): the program's spans (`fit.iteration`, `fit.lap.solve`,
+`corr.step`, `bn`, ...) with their ids, parents, threads and the `ts` /
+`dur` of their annotations in the trace, the counters (`fit.iterations`,
+`lap.solves.<route>`, `lap.sweeps`, `lap.rows_at_bound`, `corr.steps`)
+and the kernel wrappers' launches over the traced region.
 
 Every run writes the JAX package's artifacts beside its result files:
 `input.gif` of the observed sequence before the fit; after it
@@ -124,6 +130,10 @@ def _corr_args(p: argparse.ArgumentParser):
     p.add_argument("--dispatch_chunk", default=50, type=int,
                    help="steps between progress lines (and, times 10, "
                         "between checkpoint rewrites)")
+    p.add_argument("--trace_dir", default=None, type=str,
+                   help="write a torch.profiler trace of the training here "
+                        "(Chrome trace; the card's kernels on a CUDA run) "
+                        "and spans.json beside it")
     p.add_argument("--resample", default=1, type=int, choices=[0, 1],
                    help="train on independently subsampled src/tgt clouds "
                         "with radius-gated NN positives; 0 restores the "
@@ -536,30 +546,33 @@ def run_train_corr(args, device=None):
     print(f"training corr backbone: {frames.shape[0]} frames x "
           f"{frames.shape[1]} pts, {cfg.steps} steps x batch {cfg.batch} "
           f"@ {cfg.n_points} pts", flush=True)
-    t0 = time.perf_counter()
-    model, losses = train_corr(
-        args.manual_seed, frames, cfg, device=dev,
-        checkpoint_path=args.train_checkpoint,
-        log_fn=lambda s, l: print(f"  step {s}/{cfg.steps} loss {l:.3f}",
-                                  flush=True))
-    train_seconds = time.perf_counter() - t0  # log_fn's read-backs wait
-
-    if args.self_finetune_steps > 0:
-        print(f"self-finetune on real consecutive pairs: "
-              f"{args.self_finetune_steps} steps, "
-              f"{args.self_finetune_rounds} mining rounds "
-              f"(th {args.self_finetune_th}, real_frac "
-              f"{args.self_finetune_real_frac})", flush=True)
-        model, ft_losses = finetune_real_pairs(
-            args.manual_seed + 777, model, frames, cfg,
-            steps=args.self_finetune_steps, mine_th=args.self_finetune_th,
-            rounds=args.self_finetune_rounds,
-            real_frac=args.self_finetune_real_frac,
-            refine_k=args.self_finetune_refine_k, device=dev,
-            log_fn=lambda r, m: print(
-                f"  mining round {r}: {m:.3f} of points pseudo-labeled",
-                flush=True))
-        losses = np.concatenate([losses, ft_losses])
+    trace = (device_trace(args.trace_dir, cuda=dev.type == "cuda")
+             if args.trace_dir else contextlib.nullcontext())
+    with trace:
+        t0 = time.perf_counter()
+        model, losses = train_corr(
+            args.manual_seed, frames, cfg, device=dev,
+            checkpoint_path=args.train_checkpoint,
+            log_fn=lambda s, l: print(f"  step {s}/{cfg.steps} loss {l:.3f}",
+                                      flush=True))
+        train_seconds = time.perf_counter() - t0  # log_fn's read-backs wait
+        if args.self_finetune_steps > 0:
+            print(f"self-finetune on real consecutive pairs: "
+                  f"{args.self_finetune_steps} steps, "
+                  f"{args.self_finetune_rounds} mining rounds "
+                  f"(th {args.self_finetune_th}, real_frac "
+                  f"{args.self_finetune_real_frac})", flush=True)
+            model, ft_losses = finetune_real_pairs(
+                args.manual_seed + 777, model, frames, cfg,
+                steps=args.self_finetune_steps,
+                mine_th=args.self_finetune_th,
+                rounds=args.self_finetune_rounds,
+                real_frac=args.self_finetune_real_frac,
+                refine_k=args.self_finetune_refine_k, device=dev,
+                log_fn=lambda r, m: print(
+                    f"  mining round {r}: {m:.3f} of points pseudo-labeled",
+                    flush=True))
+            losses = np.concatenate([losses, ft_losses])
 
     # a held-out synthetic pair through the inference path (running
     # statistics + SMNN); correct means within pos_radius of gt_pos, which
@@ -1336,7 +1349,7 @@ def run_sample(args, domain: str, sample, save_dir: str, device=None,
                           snapshot_every=args.snapshot_gap)
         trace = (device_trace(args.trace_dir, cuda=dev.type == "cuda")
                  if args.trace_dir else contextlib.nullcontext())
-        with phase_timer("fit", verbose=not args.silence), trace:
+        with trace, phase_timer("fit", verbose=not args.silence):
             if state is None:
                 if noise is None:
                     gen = torch.Generator(device=dev).manual_seed(

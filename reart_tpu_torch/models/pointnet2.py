@@ -19,6 +19,10 @@ variance into the running statistics, as the JAX package does (torch's own
 BatchNorm would store the unbiased one), so a trained file gives the same
 features in either package.
 
+With tracing on (profiling.py) each block of the forward (`sa1`, `sa2`,
+`sa3`, `fp3`, `fp2`, `fp1`, `head`) is a span, and so is each layer's
+BatchNorm (`bn`), in the forward and in the backward.
+
 Checkpoints: the native pickle `reart_tpu_corr_v1` ({"format", "params"}, the
 JAX package's parameter tree with numpy leaves, `w` stored (in, out)) is read
 and written so that either package loads the other's file; the released
@@ -43,6 +47,7 @@ from reart_tpu_torch.ops.sampling import (
     farthest_point_sample,
     index_points,
 )
+from reart_tpu_torch.profiling import backward_span, span
 
 BN_EPS = 1e-5
 
@@ -87,21 +92,26 @@ class ConvBN(nn.Module):
 
     def forward(self, x, relu: bool = True, bn_mode: str = "running",
                 stats_out: list | None = None):
-        """x (..., c_in) -> relu(bn(x @ w.T + b))."""
-        y = F.linear(x, self.weight) + self.bias
-        if bn_mode == "batch":
-            axes = tuple(range(y.dim() - 1))
-            mean = torch.mean(y, dim=axes)
-            var = torch.var(y, dim=axes, unbiased=False)
-            if stats_out is not None:
-                stats_out.append((mean, var))
-        elif bn_mode == "running":
-            mean, var = self.running_mean, self.running_var
-        else:
-            raise ValueError(f"unknown bn_mode {bn_mode!r}")
-        y = (y - mean) / torch.sqrt(var + BN_EPS)
-        y = y * self.bn_weight + self.bn_bias
-        return F.relu(y) if relu else y
+        """x (..., c_in) -> relu(bn(x @ w.T + b)). With tracing on,
+        BatchNorm (moments, normalise, scale, ReLU) is a `bn` span, and its
+        backward one too."""
+        lin = F.linear(x, self.weight) + self.bias
+        with span("bn", lin.device):
+            if bn_mode == "batch":
+                axes = tuple(range(lin.dim() - 1))
+                mean = torch.mean(lin, dim=axes)
+                var = torch.var(lin, dim=axes, unbiased=False)
+                if stats_out is not None:
+                    stats_out.append((mean, var))
+            elif bn_mode == "running":
+                mean, var = self.running_mean, self.running_var
+            else:
+                raise ValueError(f"unknown bn_mode {bn_mode!r}")
+            y = (lin - mean) / torch.sqrt(var + BN_EPS)
+            y = y * self.bn_weight + self.bn_bias
+            out = F.relu(y) if relu else y
+        backward_span("bn", out, lin)
+        return out
 
 
 def _stack(c_in, channels, generator, device):
@@ -181,17 +191,27 @@ class PointNet2Msg2(nn.Module):
         """xyz (B, N, 3) -> per-point features (B, N, out_dim). "running"
         is the frozen inference path; "batch" the training mode, collecting
         per-layer moments into `stats_out` in `bn_paths` order."""
-        args = (bn_mode, stats_out)
-        l1_xyz, l1_points = _sa_msg(self.sa1, SA1[0], SA1[1], SA1[2], xyz,
-                                    xyz, *args)
-        l2_xyz, l2_points = _sa_msg(self.sa2, SA2[0], SA2[1], SA2[2],
-                                    l1_xyz, l1_points, *args)
-        l3_xyz, l3_points = _sa_group_all(self.sa3, l2_xyz, l2_points, *args)
-        l2_points = _fp(self.fp3, l2_xyz, l3_xyz, l2_points, l3_points, *args)
-        l1_points = _fp(self.fp2, l1_xyz, l2_xyz, l1_points, l2_points, *args)
-        l0_points = _fp(self.fp1, xyz, l1_xyz, torch.cat([xyz, xyz], -1),
-                        l1_points, *args)
-        return self.head(l0_points, bn_mode=bn_mode, stats_out=stats_out)
+        args, dev = (bn_mode, stats_out), xyz.device
+        with span("sa1", dev):
+            l1_xyz, l1_points = _sa_msg(self.sa1, SA1[0], SA1[1], SA1[2],
+                                        xyz, xyz, *args)
+        with span("sa2", dev):
+            l2_xyz, l2_points = _sa_msg(self.sa2, SA2[0], SA2[1], SA2[2],
+                                        l1_xyz, l1_points, *args)
+        with span("sa3", dev):
+            l3_xyz, l3_points = _sa_group_all(self.sa3, l2_xyz, l2_points,
+                                              *args)
+        with span("fp3", dev):
+            l2_points = _fp(self.fp3, l2_xyz, l3_xyz, l2_points, l3_points,
+                            *args)
+        with span("fp2", dev):
+            l1_points = _fp(self.fp2, l1_xyz, l2_xyz, l1_points, l2_points,
+                            *args)
+        with span("fp1", dev):
+            l0_points = _fp(self.fp1, xyz, l1_xyz, torch.cat([xyz, xyz], -1),
+                            l1_points, *args)
+        with span("head", dev):
+            return self.head(l0_points, bn_mode=bn_mode, stats_out=stats_out)
 
 
 def bn_paths() -> list:

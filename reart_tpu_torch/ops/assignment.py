@@ -3,6 +3,12 @@
 
 Sweep counts are bounded (`max_sweeps`); rows still unassigned at the bound
 are completed greedily outside the kernel (they may duplicate a column).
+With tracing on (profiling.py) every solve counts its route
+(`lap.solves.resident`, `.hbm`, `.large`, `.sweeps`, `.banded`), the
+sweeps its kernel reports (`lap.sweeps`, summed over elements and epsilon
+phases on the device; the resident kernel reports none) and, on the dense
+routes, the rows left unassigned at the bound before the completion
+(`lap.rows_at_bound`; the banded kernel completes its rows itself).
 Prices can be warm-started across solves (`price` in and out). `auction_lap`
 picks its solver by size as the JAX package does: one launch up to 1024^2
 (resident) and up to 2048^2 (streamed), sweep by sweep past that; on the
@@ -20,6 +26,7 @@ from __future__ import annotations
 
 import torch
 
+from reart_tpu_torch import profiling
 from reart_tpu_torch.ops.cuda_auction import (
     BAND_MAX_BYTES,
     _band_offsets,
@@ -117,19 +124,33 @@ def auction_lap(cost: torch.Tensor, eps_min: float = 1e-4,
     price = price.to(torch.float32).contiguous()
     eps_list = tuple(float(eps_min * scale_factor ** k)
                      for k in range(num_scales - 1, -1, -1))
-    solve = None
+    route, solve = "sweeps", None
     if use_resident or (use_resident is None and resident_available(n, m)):
-        solve = auction_solve_resident
+        route, solve = "resident", auction_solve_resident
     elif use_resident is None and resident_hbm_available(n, m):
-        solve = auction_solve_resident_hbm
+        route, solve = "hbm", auction_solve_resident_hbm
     elif use_resident is None and large_available(n, m, benefit.device):
-        solve = auction_solve_large
-    if solve is not None:
-        row_to_col, price = solve(benefit, price, eps_list, max_sweeps)
-    else:
-        for eps in eps_list:
+        route, solve = "large", auction_solve_large
+    # the sweeps each kernel reports, asked for only when traced
+    traced, stats = profiling.enabled(), None
+    if solve is None:
+        if traced:
+            stats = torch.zeros((b, len(eps_list), 2), dtype=torch.int32,
+                                device=benefit.device)
+        for e, eps in enumerate(eps_list):
+            kw = {} if stats is None else {"stats": stats[:, e]}
             row_to_col, price = _auction_phase(benefit, price, eps,
-                                               max_sweeps)
+                                               max_sweeps, **kw)
+    elif traced and route != "resident":
+        row_to_col, price, stats = solve(benefit, price, eps_list,
+                                         max_sweeps, return_stats=True)
+    else:
+        row_to_col, price = solve(benefit, price, eps_list, max_sweeps)
+    if traced:
+        profiling.count(f"lap.solves.{route}")
+        if stats is not None:
+            profiling.count("lap.sweeps", stats[..., 0])
+        profiling.count("lap.rows_at_bound", row_to_col < 0)
     # greedy completion of any rows left by the sweep bound
     fallback = torch.argmax(benefit - price[:, None, :], dim=-1)
     row_to_col = torch.where(row_to_col < 0, fallback, row_to_col)
@@ -307,8 +328,15 @@ def auction_lap_points(pc_src: torch.Tensor, pc_tgt: torch.Tensor,
         price_s = torch.gather(price.to(torch.float32), 1, cperm)
     eps_list = tuple(float(eps_min * scale_factor ** k)
                      for k in range(num_scales - 1, -1, -1))
-    r2c_s, price_s = auction_solve_banded(src_s, tgt_s, price_s, eps_list,
-                                          max_sweeps, band)
+    if profiling.enabled():
+        r2c_s, price_s, stats = auction_solve_banded(
+            src_s, tgt_s, price_s, eps_list, max_sweeps, band,
+            return_stats=True)
+        profiling.count("lap.solves.banded")
+        profiling.count("lap.sweeps", stats[..., 0])
+    else:
+        r2c_s, price_s = auction_solve_banded(src_s, tgt_s, price_s,
+                                              eps_list, max_sweeps, band)
     # sorted row i is original row rperm[i]; its column r2c_s[i] is
     # original column cperm[r2c_s[i]]
     col_orig = torch.gather(cperm, 1, r2c_s)

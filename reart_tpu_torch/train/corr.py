@@ -22,6 +22,12 @@ equal bit for bit under `torch.use_deterministic_algorithms(True)` (the
 backward of the gathers adds in an order that otherwise changes from run to
 run).
 
+With tracing on (profiling.py) a run is the span `corr.train`, each step a
+`corr.step` holding `corr.draws`, `corr.synth`, `corr.forward` (the
+backbone's blocks and BatchNorms inside), `corr.loss`, `corr.backward`
+and `corr.update`; `corr.log` and `corr.checkpoint` lie between steps, and
+the counter `corr.steps` counts the steps done (fine-tuning's too).
+
 Precision: float32 matrix products (no TF32) unless `compute_dtype` is
 "bfloat16", which runs the backbone's matrix products under
 `torch.autocast(bfloat16)` with float32 weights, BatchNorm moments, logits
@@ -44,6 +50,7 @@ from reart_tpu_torch import resolve_device, tree_to_numpy
 from reart_tpu_torch.geometry import so3_exp_map
 from reart_tpu_torch.models.pointnet2 import PointNet2Msg2, apply_bn_ema
 from reart_tpu_torch.ops.sampling import index_points
+from reart_tpu_torch.profiling import count, span
 from reart_tpu_torch.train.engine import _to_device
 
 TRAIN_CKPT_FORMAT = "reart_tpu_torch_corr_train_v1"
@@ -227,72 +234,85 @@ def corr_info_nce(model: PointNet2Msg2, src, tgt, temperature: float,
     negatives (with -1e9, not -inf). The reverse direction likewise with the
     roles swapped. scale (B,): the per-pair rescale factor of synth_pair, by
     which both radii are multiplied. The gates are constants: no gradient
-    passes through them. Plain autograd differentiates the tail."""
-    b, n = src.shape[0], src.shape[1]
+    passes through them. Plain autograd differentiates the tail.
+
+    With tracing on the backbone's pass is the span `corr.forward` and the
+    rest (normalisation, gates, logits, loss) `corr.loss`."""
     stats = []
     both = torch.cat([src, tgt], dim=0)
     kw = dict(bn_mode="batch", stats_out=stats)
-    if compute_dtype == "float64":
-        # the weights cast for the pass: gradients reach the float32 ones
-        cast = {k: v.double() for k, v in model.named_parameters()}
-        feats = torch.func.functional_call(model, cast, (both.double(),), kw)
-    elif compute_dtype == "bfloat16":
-        with torch.autocast(device_type=both.device.type,
-                            dtype=torch.bfloat16):
+    with span("corr.forward", src.device):
+        if compute_dtype == "float64":
+            # the weights cast for the pass: gradients reach the float32 ones
+            cast = {k: v.double() for k, v in model.named_parameters()}
+            feats = torch.func.functional_call(model, cast, (both.double(),),
+                                               kw)
+        elif compute_dtype == "bfloat16":
+            with torch.autocast(device_type=both.device.type,
+                                dtype=torch.bfloat16):
+                feats = model(both, **kw)
+        elif compute_dtype == "float32":
             feats = model(both, **kw)
-    elif compute_dtype == "float32":
-        feats = model(both, **kw)
-    else:
-        raise ValueError(f"compute_dtype {compute_dtype!r}: float32, "
-                         f"bfloat16 or float64")
-    feats = feats.to(torch.float32)
-    stats = [(m.to(torch.float32), v.to(torch.float32)) for m, v in stats]
-    feats = feats / (torch.linalg.norm(feats, dim=-1, keepdim=True) + 1e-8)
-    f1, f2 = feats[:b], feats[b:]
-
-    with torch.no_grad():
-        if gt_pos is None:
-            is_pos = torch.eye(n, dtype=torch.bool,
-                               device=src.device).expand(b, n, n)
-            near = torch.zeros((b, n, n), dtype=torch.bool,
-                               device=src.device)
-            valid = torch.ones((b, n), dtype=torch.float32,
-                               device=src.device)
-            gates_f = gates_b = (is_pos, near, valid)
         else:
-            # from each src point's true position to every tgt point
-            d2 = torch.sum((gt_pos[:, :, None] - tgt[:, None]) ** 2, dim=-1)
-            s = (torch.ones((b,), dtype=torch.float32, device=src.device)
-                 if scale is None else
-                 torch.as_tensor(scale, dtype=torch.float32,
-                                 device=src.device))
-            pos_r2 = (pos_radius * s)[:, None] ** 2              # (B, 1)
-            neg_r2 = (neg_radius * s)[:, None, None] ** 2        # (B, 1, 1)
+            raise ValueError(f"compute_dtype {compute_dtype!r}: float32, "
+                             f"bfloat16 or float64")
+    with span("corr.loss", src.device):
+        b, n = src.shape[0], src.shape[1]
+        feats = feats.to(torch.float32)
+        stats = [(m.to(torch.float32), v.to(torch.float32)) for m, v in stats]
+        feats = feats / (torch.linalg.norm(feats, dim=-1, keepdim=True) + 1e-8)
+        f1, f2 = feats[:b], feats[b:]
 
-            def gates(d2):
-                dmin, pos = torch.min(d2, dim=-1)
-                valid = (dmin < pos_r2).to(torch.float32)
-                is_pos = F.one_hot(pos, d2.shape[-1]).to(torch.bool)
-                return is_pos, (d2 < neg_r2) & ~is_pos, valid
+        with torch.no_grad():
+            if gt_pos is None:
+                is_pos = torch.eye(n, dtype=torch.bool,
+                                   device=src.device).expand(b, n, n)
+                near = torch.zeros((b, n, n), dtype=torch.bool,
+                                   device=src.device)
+                valid = torch.ones((b, n), dtype=torch.float32,
+                                   device=src.device)
+                gates_f = gates_b = (is_pos, near, valid)
+            else:
+                # from each src point's true position to every tgt point
+                d2 = torch.sum((gt_pos[:, :, None] - tgt[:, None]) ** 2,
+                               dim=-1)
+                s = (torch.ones((b,), dtype=torch.float32, device=src.device)
+                     if scale is None else
+                     torch.as_tensor(scale, dtype=torch.float32,
+                                     device=src.device))
+                pos_r2 = (pos_radius * s)[:, None] ** 2          # (B, 1)
+                neg_r2 = (neg_radius * s)[:, None, None] ** 2    # (B, 1, 1)
 
-            gates_f = gates(d2)
-            gates_b = gates(d2.transpose(1, 2))
+                def gates(d2):
+                    dmin, pos = torch.min(d2, dim=-1)
+                    valid = (dmin < pos_r2).to(torch.float32)
+                    is_pos = F.one_hot(pos, d2.shape[-1]).to(torch.bool)
+                    return is_pos, (d2 < neg_r2) & ~is_pos, valid
 
-    lg = torch.einsum("bnd,bmd->bnm", f1, f2) * (1.0 / temperature)
-    loss = 0.5 * (_nce_dir(lg, *gates_f)
-                  + _nce_dir(lg.transpose(1, 2), *gates_b))
-    return loss, stats
+                gates_f = gates(d2)
+                gates_b = gates(d2.transpose(1, 2))
+
+        lg = torch.einsum("bnd,bmd->bnm", f1, f2) * (1.0 / temperature)
+        loss = 0.5 * (_nce_dir(lg, *gates_f)
+                      + _nce_dir(lg.transpose(1, 2), *gates_b))
+        return loss, stats
 
 
 def _train_step(model, opt, cfg: CorrTrainConfig, src, tgt, gt_pos, scale):
-    """One Adam step and the running-statistics update; returns the loss."""
+    """One Adam step and the running-statistics update; returns the loss.
+    Spans: `corr.forward` and `corr.loss` (in corr_info_nce),
+    `corr.backward` (with `zero_grad`, which frees the gradients and
+    launches nothing), `corr.update` (Adam, apply_bn_ema)."""
+    dev = src.device
     loss, stats = corr_info_nce(
         model, src, tgt, cfg.temperature, cfg.compute_dtype, gt_pos,
         cfg.pos_radius, cfg.neg_radius, scale)
-    opt.zero_grad(set_to_none=True)
-    loss.backward()
-    opt.step()
-    apply_bn_ema(model, stats, cfg.bn_momentum)
+    with span("corr.backward", dev):
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+    with span("corr.update", dev):
+        opt.step()
+        apply_bn_ema(model, stats, cfg.bn_momentum)
     return loss.detach()
 
 
@@ -372,23 +392,31 @@ def train_corr(seed: int, frames, cfg: CorrTrainConfig = CorrTrainConfig(),
 
     chunk = max(1, cfg.dispatch_chunk)
     chunks_since_ckpt = 0
-    while done < cfg.steps:
-        end = min(done + chunk, cfg.steps)
-        for step in range(done, end):
-            src, tgt, gt_pos, scale = synth_pair(draws(step), frames, cfg)
-            losses[step] = _train_step(
-                model, opt, cfg, src, tgt,
-                gt_pos if cfg.resample else None, scale)
-        done = end
-        chunks_since_ckpt += 1
-        if checkpoint_path and (chunks_since_ckpt >= cfg.checkpoint_every
-                                or done >= cfg.steps):
-            _save_train_ckpt(checkpoint_path, model, opt, generator, done,
-                             losses)
-            chunks_since_ckpt = 0
-        if log_fn is not None:
-            log_fn(done, float(losses[done - 1]))
-    return model, losses.cpu().numpy()
+    with span("corr.train", dev):
+        while done < cfg.steps:
+            end = min(done + chunk, cfg.steps)
+            for step in range(done, end):
+                with span("corr.step", dev):
+                    with span("corr.draws", dev):
+                        d = draws(step)
+                    with span("corr.synth", dev):
+                        src, tgt, gt_pos, scale = synth_pair(d, frames, cfg)
+                    losses[step] = _train_step(
+                        model, opt, cfg, src, tgt,
+                        gt_pos if cfg.resample else None, scale)
+                count("corr.steps")
+            done = end
+            chunks_since_ckpt += 1
+            if checkpoint_path and (chunks_since_ckpt >= cfg.checkpoint_every
+                                    or done >= cfg.steps):
+                with span("corr.checkpoint", dev):
+                    _save_train_ckpt(checkpoint_path, model, opt, generator,
+                                     done, losses)
+                chunks_since_ckpt = 0
+            if log_fn is not None:
+                with span("corr.log", dev):
+                    log_fn(done, float(losses[done - 1]))
+        return model, losses.cpu().numpy()
 
 
 # ---------------------------------------------------------------------------
@@ -493,10 +521,13 @@ def finetune_real_pairs(seed: int, model: PointNet2Msg2, frames,
             log_fn(r, float((gt_pos_all[..., 0] < FAR_POS / 2)
                             .to(torch.float32).mean()))
         for _ in range(per_round):
-            src, tgt, gt_pos, scale = _finetune_batch(
-                generator, frames, gt_pos_all, real_frac, cfg)
-            losses.append(_train_step(model, opt, cfg, src, tgt, gt_pos,
-                                      scale))
+            with span("corr.step", dev):
+                with span("corr.synth", dev):
+                    src, tgt, gt_pos, scale = _finetune_batch(
+                        generator, frames, gt_pos_all, real_frac, cfg)
+                losses.append(_train_step(model, opt, cfg, src, tgt, gt_pos,
+                                          scale))
+            count("corr.steps")
     out = torch.stack(losses) if losses else torch.zeros(0)
     return model, out.cpu().numpy()
 

@@ -29,6 +29,14 @@ history, the guard's decision) and the next call resumes from it; the file
 goes when the fit completes. There are no dispatch chunks: a log line, a
 snapshot or a save falls on the first iteration boundary (in the
 assignment phase: the first LAP boundary) at or past each multiple.
+
+With tracing on (profiling.py) each iteration is the span `fit.iteration`
+(children `fit.forward`, `fit.loss`, `fit.backward`, `fit.update`) and is
+counted in `fit.iterations`; each LAP boundary is `fit.lap` (children
+`fit.lap.forward`, `fit.lap.probe` where the band guard probes,
+`fit.lap.solve`, whose solvers count their routes, sweeps and rows left
+at the sweep bound: ops/assignment); a log, snapshot or save is
+`fit.boundary`.
 """
 
 from __future__ import annotations
@@ -59,6 +67,7 @@ from reart_tpu_torch.ops.assignment import auction_lap
 from reart_tpu_torch.ops.distance import pairwise_sqdist
 from reart_tpu_torch.ops.interpolate import blend_anchor_motion_batched
 from reart_tpu_torch.ops.sampling import farthest_point_sample, index_points
+from reart_tpu_torch.profiling import count, span
 from reart_tpu_torch.train.schedules import tau_cosine
 
 # sentinel coordinate for padded flow anchors: a padded anchor can never
@@ -318,51 +327,64 @@ def fit(forward_fn: ForwardFn, model: torch.nn.Module, cfg: FitConfig,
         def crossed(every):
             return done // every != (done - step_sz) // every
 
-        if log_every is not None and (crossed(max(log_every, 1))
-                                      or done >= cfg.n_iter):
-            last = {k: float(history[k][done - 1]) for k in HISTORY_KEYS}
-            msg = " | ".join(f"{k}: {v:.3f}" for k, v in last.items()
-                             if v != 0.0)
-            print(f"iteration {done - 1} | {msg}", flush=True)
-        if (snapshot_cb is not None and done < cfg.n_iter
-                and crossed(max(snapshot_every or cfg.n_iter, 1))):
-            snapshot_cb(done, model)
-        if (ckpt_path is not None and done < cfg.n_iter
-                and done - last_saved >= checkpoint_every):
-            os.makedirs(checkpoint_dir, exist_ok=True)
-            payload = {
-                "done": done,
-                "params": tree_to_numpy(dict(model.state_dict())),
-                "opt_state": tree_to_numpy(opt.state_dict()),
-                "price": None if price is None else tree_to_numpy(price),
-                "history": {k: tree_to_numpy(v[:done])
-                            for k, v in history.items()},
-                "guard_band": guard["band"],
-            }
-            tmp = ckpt_path + ".tmp"
-            with open(tmp, "wb") as f:
-                pickle.dump(payload, f)
-            os.replace(tmp, ckpt_path)  # atomic: never half a file
-            last_saved = done
+        log = log_every is not None and (crossed(max(log_every, 1))
+                                         or done >= cfg.n_iter)
+        snap = (snapshot_cb is not None and done < cfg.n_iter
+                and crossed(max(snapshot_every or cfg.n_iter, 1)))
+        save = (ckpt_path is not None and done < cfg.n_iter
+                and done - last_saved >= checkpoint_every)
+        if not (log or snap or save):
+            return
+        with span("fit.boundary", dev):
+            if log:
+                last = {k: float(history[k][done - 1]) for k in HISTORY_KEYS}
+                msg = " | ".join(f"{k}: {v:.3f}" for k, v in last.items()
+                                 if v != 0.0)
+                print(f"iteration {done - 1} | {msg}", flush=True)
+            if snap:
+                snapshot_cb(done, model)
+            if save:
+                os.makedirs(checkpoint_dir, exist_ok=True)
+                payload = {
+                    "done": done,
+                    "params": tree_to_numpy(dict(model.state_dict())),
+                    "opt_state": tree_to_numpy(opt.state_dict()),
+                    "price": None if price is None else tree_to_numpy(price),
+                    "history": {k: tree_to_numpy(v[:done])
+                                for k, v in history.items()},
+                    "guard_band": guard["band"],
+                }
+                tmp = ckpt_path + ".tmp"
+                with open(tmp, "wb") as f:
+                    pickle.dump(payload, f)
+                os.replace(tmp, ckpt_path)  # atomic: never half a file
+                last_saved = done
 
     def step(it, g, perm=None, actx=None):
-        pc_trans_list, _, _ = forward_fn(model, cano_pc, g, tau_fn(it + 1))
-        terms = {}
-        if perm is None or cfg.always_recon:
-            terms["recon_loss"] = recon_loss(pc_trans_list, pc_list)
-        if perm is not None:
-            terms["ass_loss"] = cfg.lambda_assign * assignment_loss(
-                select_rows(actx, pc_trans_list), actx.pc_tgt, perm)
-        if flow_ctx is not None and cfg.use_flow_loss:
-            terms["flow_loss"] = _flow_term(pc_trans_list, cano_pc, flow_ctx,
-                                            cfg, cano_idx)
-        total = functools.reduce(torch.add, terms.values())
-        opt.zero_grad(set_to_none=True)
-        total.backward()
-        opt.step()
-        terms["total_loss"] = total
-        for k, v in terms.items():
-            history[k][it] = v.detach()
+        with span("fit.iteration", dev):
+            with span("fit.forward", dev):
+                pc_trans_list, _, _ = forward_fn(model, cano_pc, g,
+                                                 tau_fn(it + 1))
+            with span("fit.loss", dev):
+                terms = {}
+                if perm is None or cfg.always_recon:
+                    terms["recon_loss"] = recon_loss(pc_trans_list, pc_list)
+                if perm is not None:
+                    terms["ass_loss"] = cfg.lambda_assign * assignment_loss(
+                        select_rows(actx, pc_trans_list), actx.pc_tgt, perm)
+                if flow_ctx is not None and cfg.use_flow_loss:
+                    terms["flow_loss"] = _flow_term(pc_trans_list, cano_pc,
+                                                    flow_ctx, cfg, cano_idx)
+                total = functools.reduce(torch.add, terms.values())
+            with span("fit.backward", dev):
+                opt.zero_grad(set_to_none=True)
+                total.backward()
+            with span("fit.update", dev):
+                opt.step()
+                terms["total_loss"] = total
+                for k, v in terms.items():
+                    history[k][it] = v.detach()
+        count("fit.iterations")
 
     use_assign = cfg.use_assign_loss and cfg.assign_iter < cfg.n_iter
     n_recon = min(cfg.assign_iter, cfg.n_iter) if use_assign else cfg.n_iter
@@ -385,18 +407,20 @@ def fit(forward_fn: ForwardFn, model: torch.nn.Module, cfg: FitConfig,
         rp = max(cfg.assign_band_reprobe, 0)
 
         def probe(pc_src, price):
-            cb, cd = _band_guard_probe(pc_src, actx.pc_tgt, price, band,
-                                       cfg.assign_sweeps)
+            with span("fit.lap.probe", dev):
+                cb, cd = _band_guard_probe(pc_src, actx.pc_tgt, price, band,
+                                           cfg.assign_sweeps)
             rel = cb / max(cd, 1e-12) - 1.0
             return (band if rel <= cfg.assign_band_guard else 0), rel
 
         # a save falls on a LAP boundary, so a resumed fit starts on one
         for it0 in range(max(n_recon, resume_done), cfg.n_iter, gap):
             g0 = draw(it0)
-            with torch.no_grad():
-                pc_trans_list, _, _ = forward_fn(model, cano_pc, g0,
-                                                 tau_fn(it0 + 1))
-                pc_src = select_rows(actx, pc_trans_list)
+            with torch.no_grad(), span("fit.lap", dev):
+                with span("fit.lap.forward", dev):
+                    pc_trans_list, _, _ = forward_fn(model, cano_pc, g0,
+                                                     tau_fn(it0 + 1))
+                    pc_src = select_rows(actx, pc_trans_list)
                 if guard_active and guard["band"] is None:
                     guard["band"], rel = probe(pc_src, price)
                     if guard["band"] == 0:
@@ -418,10 +442,11 @@ def fit(forward_fn: ForwardFn, model: torch.nn.Module, cfg: FitConfig,
                         guard["band"] = new_band
                 # warm-started prices: between solves the clouds barely
                 # move, so a solve converges in a few bounded sweeps
-                perm, price = _solve_assignment(
-                    pc_src, actx.pc_tgt, price,
-                    guard["band"] if guard_active else band,
-                    cfg.assign_sweeps)
+                with span("fit.lap.solve", dev):
+                    perm, price = _solve_assignment(
+                        pc_src, actx.pc_tgt, price,
+                        guard["band"] if guard_active else band,
+                        cfg.assign_sweeps)
             end = min(it0 + gap, cfg.n_iter)
             for it in range(it0, end):
                 step(it, g0 if it == it0 else draw(it), perm, actx)

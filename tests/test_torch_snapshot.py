@@ -168,7 +168,8 @@ def test_a_failing_row_raises_from_finish():
 
 def test_trace_dir_writes_a_trace(tmp_path):
     """`--trace_dir` on the CPU: a gzipped Chrome trace of the fit, host
-    activity only, naming the fit's operators."""
+    activity only, naming the fit's operators; spans.json beside it with
+    the fit's spans under the `fit` phase, and its counters."""
     sample = make_toy_robot_sample()
     trace_dir = tmp_path / "trace"
     args = cli.build_parser().parse_args(
@@ -182,3 +183,16 @@ def test_trace_dir_writes_a_trace(tmp_path):
     names = {e.get("name") for e in events}
     assert "aten::bmm" in names or "aten::mm" in names
     assert not any(e.get("cat") == "kernel" for e in events)
+    with open(trace_dir / "spans.json") as f:
+        spans = json.load(f)
+    parent = {s["id"]: s["name"] for s in spans["spans"]}
+    pairs = [(s["name"], parent.get(s["parent"])) for s in spans["spans"]]
+    assert pairs.count(("fit", None)) == 1
+    assert pairs.count(("fit.iteration", "fit")) == 20
+    assert pairs.count(("fit.lap.solve", "fit.lap")) == 2
+    assert {"fit.forward", "fit.loss", "fit.backward", "fit.update",
+            "fit.lap.forward"} <= set(parent.values())
+    assert spans["counters"]["fit.iterations"] == 20
+    assert spans["counters"]["lap.solves.resident"] == 2
+    assert all(s["ts"] is not None and s["dur"] >= 0
+               for s in spans["spans"])
