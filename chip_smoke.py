@@ -8,8 +8,11 @@ Phases, each of which raises on failure (exit code != 0):
   2. build:  compiles reart_tpu_torch/csrc/*.cu (sm_90a) into the kernel
              library and native/lap.cpp with the host compiler, and prints
              the build time and ptxas resource lines;
-  3. kernels vs plain: each of the thirteen kernels against its plain
-             PyTorch version on the card, at the main paths' shapes plus
+  3. kernels vs plain: each of the thirteen kernels that replace a TPU
+             kernel against its plain PyTorch version on the card, and the
+             fused BatchNorm (row 14) against the written-out form bit for
+             bit at sa1.2's layer shapes, timed beside it, F.batch_norm +
+             ReLU and its byte bound; at the main paths' shapes plus
              ragged and tie cases (for blend3 and nn1_bidir_coords also ties
              across
              their slices and tiles, sizes past them, M = 3; for fps N at
@@ -79,7 +82,8 @@ Phases, each of which raises on failure (exit code != 0):
              and of the whole run, seconds per stage;
   8. the corr chain at full width: the scene of phase 6 written to disk,
              the `corr` subcommand trains the PointNet++ backbone on it
-             (batch 4, 1024 points, CORR_STEPS steps); the operator census
+             (batch 4, 1024 points, CORR_STEPS steps; every step's 25
+             BatchNorms fused, forward and backward); the operator census
              of a training step, two trainings of CORR_TWIN_STEPS steps from
              the same seeds that must end bit-equal (weights, optimizer and
              generator states, losses), and a step's time with the gathers'
@@ -260,6 +264,8 @@ KERNELS = {
     "auction_solve_large": ("reart_tpu_torch/csrc/auction_large.cu",
                             "reart_tpu/ops/pallas_auction.py:39, "
                             "reart_tpu/ops/pallas_auction.py:105"),
+    # replaces no TPU kernel: the JAX package's BatchNorm is fused by XLA
+    "batch_norm": ("reart_tpu_torch/csrc/batch_norm.cu", None),
 }
 
 
@@ -721,6 +727,7 @@ def kernel_phase(dev):
     sweep_kernel_phase(dev, gen, pred_clouds, pcs, stats)
     streamed_kernel_phase(dev, gen, stats)
     ball_query_phase(dev, gen, stats)
+    batch_norm_phase(dev, gen, stats)
     with tempfile.TemporaryDirectory() as tmp:
         banded_kernel_phase(dev, tmp, stats)
     cluster_config_phase()
@@ -1470,6 +1477,94 @@ def gather_points(points, idx):
     return torch.gather(points, 1, idx[..., None].expand(-1, -1, 3))
 
 
+# sa1.2's three layers, the largest of a corr step: (lin shape, C_in)
+BN_SHAPES = (((8, 512, 128, 64), 6), ((8, 512, 128, 96), 64),
+             ((8, 512, 128, 128), 96))
+
+
+def batch_norm_phase(dev, gen, stats):
+    """The fused batch-mode BatchNorm (ops/cuda_bn.py, row 14) at sa1.2's
+    layer shapes: the Function's output, moments and the gradients of its
+    four inputs equal autograd of the written-out form bit for bit; its
+    forward and backward timed as replayed CUDA graphs, beside the
+    written-out form (forward and autograd's backward), F.batch_norm + ReLU
+    (a yardstick only: the port never calls it) and the byte bound of eight
+    passes over the layer's (R, C) float32 tensor."""
+    from torch.nn import functional as F
+
+    from reart_tpu_torch.ops import cuda_bn
+
+    def written_out(lin, bias, w, b, relu=True):
+        out, _, mean, var = cuda_bn.bn_forward_plain(lin, bias, w, b, relu)
+        return out, mean, var
+
+    def library(lin, bias, w, b, relu=True):
+        y = F.batch_norm((lin + bias).reshape(-1, lin.shape[-1]), None, None,
+                         w, b, True, 0.0, cuda_bn.BN_EPS)
+        return F.relu(y), None, None
+
+    def fwd_bwd(fn, args, grad):
+        def call():
+            out = fn(*args)[0]
+            return torch.autograd.grad(out, args, grad.reshape(out.shape))
+        return call
+
+    out = {}
+    for shape, c_in in BN_SHAPES:
+        c = shape[-1]
+        x = torch.rand(shape[:-1] + (c_in,), generator=gen, device=dev)
+        bound = 1.0 / math.sqrt(c_in)
+        lin = F.linear(x, (2 * torch.rand((c, c_in), generator=gen,
+                                          device=dev) - 1) * bound)
+        del x
+        bias = (2 * torch.rand(c, generator=gen, device=dev) - 1) * bound
+        w = 0.5 + torch.rand(c, generator=gen, device=dev)
+        b = 0.2 * torch.randn(c, generator=gen, device=dev)
+        grad = torch.randn(shape, generator=gen, device=dev)
+        args = [t.requires_grad_() for t in (lin, bias, w, b)]
+        res = []
+        for fn in (cuda_bn.batch_norm_relu, written_out):
+            o, m, v = fn(*args)
+            res.append((o, m, v) + torch.autograd.grad(o, args, grad))
+        for name, got, want in zip(
+                ("out", "mean", "var", "grad lin", "grad bias",
+                 "grad bn_weight", "grad bn_bias"), *res):
+            if not torch.equal(got, want):
+                raise AssertionError(f"batch_norm {shape}: {name} differs "
+                                     f"from the written-out form's")
+        del res
+        plain = [t.detach() for t in args]
+        _, z, mean, var = cuda_bn.bn_forward(*plain, True)
+        ms_fwd = graph_ms(lambda: cuda_bn.bn_forward(*plain, True),
+                          launches=5)
+        ms_bwd = graph_ms(lambda: cuda_bn.bn_backward(
+            grad, z, mean, var, plain[2], plain[3], True), launches=5)
+        del z, mean, var
+        rows = lin.numel() // c
+        out[shape] = dict(
+            ms=ms_fwd + ms_bwd, ms_fwd=ms_fwd, ms_bwd=ms_bwd,
+            plain_ms=many_ms(fwd_bwd(written_out, args, grad), 5, 3),
+            library_ms=many_ms(fwd_bwd(library, args, grad), 5, 3),
+            bound_ms=8 * 4 * rows * c / 3.35e12 * 1e3)
+        s = out[shape]
+        log(f"batch_norm {shape} from C_in {c_in}: the written-out form's "
+            f"output, moments and four gradients bit for bit; forward "
+            f"{ms_fwd:.4f} + backward {ms_bwd:.4f} ms (device, replayed "
+            f"graphs) against the 8-pass byte bound {s['bound_ms']:.4f} "
+            f"({100 * s['bound_ms'] / s['ms']:.1f}%); written-out forward "
+            f"and backward {s['plain_ms']:.4f} ms, F.batch_norm + ReLU "
+            f"{s['library_ms']:.4f} ms")
+        del lin, bias, w, b, grad, args, plain
+    main = BN_SHAPES[-1][0]
+    stats["batch_norm"] = dict(
+        shape=str(main), max_abs_err=0.0, bound_by="bytes",
+        **{k: out[main][k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "library_ms")},
+        ms_forward=out[main]["ms_fwd"], ms_backward=out[main]["ms_bwd"],
+        **{f"ms_{'x'.join(map(str, sh))}": out[sh]["ms"]
+           for sh, _ in BN_SHAPES[:-1]})
+
+
 def ball_query_phase(dev, gen, stats):
     """The three kernels of a backbone forward (fps, ball_query, nn_topk k=3)
     against their plain versions, indices exact, on the clouds the two
@@ -1917,7 +2012,7 @@ def kinematic_check_phase(dev, tmp, arts):
 
 
 def kernel_wrappers():
-    from reart_tpu_torch.ops import cuda_auction, cuda_fps, cuda_nn
+    from reart_tpu_torch.ops import cuda_auction, cuda_bn, cuda_fps, cuda_nn
 
     return (cuda_nn.nn1_bidir_coords, cuda_nn.blend3, cuda_fps.fps,
             cuda_auction.auction_solve_resident, cuda_nn.nn_topk,
@@ -1925,11 +2020,16 @@ def kernel_wrappers():
             cuda_auction.col_winner_max,
             cuda_auction.auction_solve_resident_hbm, cuda_nn.ball_query,
             cuda_auction.auction_solve_banded,
-            cuda_auction.auction_solve_large)
+            cuda_auction.auction_solve_large, cuda_bn.bn_forward,
+            cuda_bn.bn_backward)
 
 
 def launch_counts():
-    return {w.__name__: w.launches for w in kernel_wrappers()}
+    """Each wrapper's launches, and `batch_norm`: the fused BatchNorm's
+    forwards and backwards together (row 14)."""
+    counts = {w.__name__: w.launches for w in kernel_wrappers()}
+    counts["batch_norm"] = counts["bn_forward"] + counts["bn_backward"]
+    return counts
 
 
 def sweep_route_unused(what, launches, presolve_only=True):
@@ -1993,11 +2093,14 @@ def run_phase(dev, tmp, arts):
         raise AssertionError("run: model.ckpt.pkl does not reload")
     for name, count in launches.items():
         # the streamed auction belongs to the projection run's path, the
-        # ball query to the corr chain's, the banded auction to sapien's;
-        # the sweep kernels to auction_lap(..., use_resident=False) alone
+        # ball query and the fused BatchNorm to the corr chain's, the banded
+        # auction to sapien's; the sweep kernels to auction_lap(...,
+        # use_resident=False) alone
         if (count <= 0) != (name in ("auction_solve_resident_hbm",
                                      "ball_query", "auction_solve_banded",
-                                     "row_top2", "col_winner_max")):
+                                     "row_top2", "col_winner_max",
+                                     "bn_forward", "bn_backward",
+                                     "batch_norm")):
             raise AssertionError(f"kernel {name}: {count} launches in the "
                                  f"relaxation run")
     sweep_route_unused("run", launches)
@@ -2215,6 +2318,11 @@ def corr_train_phase(dev, tmp, sample):
         if launches[name] != per * (CORR_STEPS + 3):
             raise AssertionError(f"corr: {launches[name]} launches of "
                                  f"{name}, expected {per} a forward")
+    # each training step's 25 BatchNorms fused, forward and backward; the
+    # evaluation's forwards are in running mode, written out
+    if launches["batch_norm"] != 50 * CORR_STEPS:
+        raise AssertionError(f"corr: {launches['batch_norm']} fused "
+                             f"BatchNorm calls, expected 50 a step")
     log(f"corr: {CORR_STEPS} steps of batch 4 x 1024 points in "
         f"{out['train_seconds']:.2f} s "
         f"({CORR_STEPS / out['train_seconds']:.2f} steps/s, "
@@ -2740,7 +2848,7 @@ def fit_phase(dev):
         w.launches = 0
     hist = run(marks)
     t_end = time.perf_counter()
-    launches = {w.__name__: w.launches for w in wrappers}
+    launches = launch_counts()
 
     for k, v in hist.items():
         if v.shape != (cfg.n_iter,) or not torch.isfinite(v).all():
@@ -4421,8 +4529,9 @@ def main():
                  "max_abs_err": st["max_abs_err"], "ms": st["ms"],
                  "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
                  "bound_by": st["bound_by"],
-                 # no single PyTorch call computes any of these functions
-                 "library_ms": None, "shape": st["shape"],
+                 # a single PyTorch call computes none of these functions
+                 # but BatchNorm (F.batch_norm + ReLU, a yardstick only)
+                 "library_ms": st.get("library_ms"), "shape": st["shape"],
                  # the other shapes timed in phase 3
                  "other_ms": {k: v for k, v in st.items()
                               if k.startswith("ms_")}}

@@ -10,14 +10,23 @@ with the first (the conventions of the released model's CUDA ops). On a CUDA
 tensor the SA layers run the `fps` and `ball_query` kernels and the FP layers
 `nn_topk`; on a CPU tensor their plain versions.
 
-BatchNorm is written out, not `nn.BatchNorm1d`: `bn_mode="running"`
-normalises by the stored running statistics (the frozen extractor);
-`bn_mode="batch"` by the moments of the current batch over all non-channel
-axes, with the BIASED variance, and appends each layer's (mean, var) to
-`stats_out` in `bn_paths` order. `apply_bn_ema` writes that same biased
-variance into the running statistics, as the JAX package does (torch's own
-BatchNorm would store the unbiased one), so a trained file gives the same
-features in either package.
+BatchNorm is not `nn.BatchNorm1d`: `bn_mode="running"` normalises by the
+stored running statistics (the frozen extractor); `bn_mode="batch"` by the
+moments of the current batch over all non-channel axes, with the BIASED
+variance, and appends each layer's (mean, var) to `stats_out` in
+`bn_paths` order. `apply_bn_ema` writes that same biased variance into the
+running statistics, as the JAX package does (torch's own BatchNorm would
+store the unbiased one), so a trained file gives the same features in
+either package.
+
+The route is chosen by what a layer sees. Batch mode on a float32 CUDA
+tensor (training on the card) takes the fused kernel
+(`ops/cuda_bn.batch_norm_relu`: the conv bias, the moments, normalise,
+affine and ReLU in one forward and one backward), which raises on what it
+does not take. Everything else is written out as ATen operations: every
+CPU tensor, float64 and bfloat16 (the trainer's `compute_dtype` "float64"
+and "bfloat16") and running mode (the frozen extractor of the flow set-up
+and of `mine_pair_labels`), on the card too.
 
 With tracing on (profiling.py) each block of the forward (`sa1`, `sa2`,
 `sa3`, `fp3`, `fp2`, `fp1`, `head`) is a span, and so is each layer's
@@ -41,6 +50,11 @@ from torch import nn
 from torch.nn import functional as F
 
 from reart_tpu_torch import resolve_device
+from reart_tpu_torch.ops.cuda_bn import (
+    BN_EPS,
+    batch_norm_relu,
+    normalize_plain,
+)
 from reart_tpu_torch.ops.interpolate import three_interpolate
 from reart_tpu_torch.ops.sampling import (
     ball_query,
@@ -48,8 +62,6 @@ from reart_tpu_torch.ops.sampling import (
     index_points,
 )
 from reart_tpu_torch.profiling import backward_span, span
-
-BN_EPS = 1e-5
 
 # (npoint, radii, nsamples, in_channel, mlps)
 SA1 = (512, (0.05, 0.1, 0.2), (32, 64, 128), 3,
@@ -94,22 +106,30 @@ class ConvBN(nn.Module):
                 stats_out: list | None = None):
         """x (..., c_in) -> relu(bn(x @ w.T + b)). With tracing on,
         BatchNorm (moments, normalise, scale, ReLU) is a `bn` span, and its
-        backward one too."""
-        lin = F.linear(x, self.weight) + self.bias
+        backward one too; on the fused route the span holds the conv bias's
+        add as well."""
+        lin = F.linear(x, self.weight)
+        fused = (bn_mode == "batch" and lin.device.type == "cuda"
+                 and lin.dtype == torch.float32)
+        if not fused:
+            lin = lin + self.bias
         with span("bn", lin.device):
-            if bn_mode == "batch":
-                axes = tuple(range(lin.dim() - 1))
-                mean = torch.mean(lin, dim=axes)
-                var = torch.var(lin, dim=axes, unbiased=False)
-                if stats_out is not None:
-                    stats_out.append((mean, var))
-            elif bn_mode == "running":
-                mean, var = self.running_mean, self.running_var
+            if fused:
+                out, mean, var = batch_norm_relu(
+                    lin, self.bias, self.bn_weight, self.bn_bias, relu)
             else:
-                raise ValueError(f"unknown bn_mode {bn_mode!r}")
-            y = (lin - mean) / torch.sqrt(var + BN_EPS)
-            y = y * self.bn_weight + self.bn_bias
-            out = F.relu(y) if relu else y
+                if bn_mode == "batch":
+                    axes = tuple(range(lin.dim() - 1))
+                    mean = torch.mean(lin, dim=axes)
+                    var = torch.var(lin, dim=axes, unbiased=False)
+                elif bn_mode == "running":
+                    mean, var = self.running_mean, self.running_var
+                else:
+                    raise ValueError(f"unknown bn_mode {bn_mode!r}")
+                out = normalize_plain(lin, mean, var, self.bn_weight,
+                                      self.bn_bias, relu)
+            if bn_mode == "batch" and stats_out is not None:
+                stats_out.append((mean, var))
         backward_span("bn", out, lin)
         return out
 

@@ -186,10 +186,10 @@ def count(name: str, n=1) -> None:
 
 def _launch_counts() -> dict:
     """Every kernel wrapper's `.launches`, by the wrapper's name."""
-    from reart_tpu_torch.ops import cuda_auction, cuda_fps, cuda_nn
+    from reart_tpu_torch.ops import cuda_auction, cuda_bn, cuda_fps, cuda_nn
 
     return {name: fn.launches
-            for mod in (cuda_auction, cuda_fps, cuda_nn)
+            for mod in (cuda_auction, cuda_bn, cuda_fps, cuda_nn)
             for name, fn in vars(mod).items()
             if callable(fn) and isinstance(getattr(fn, "launches", None),
                                            int)}
